@@ -1,0 +1,17 @@
+"""repro_torch — tunable precision emulation via automatic BLAS offloading,
+ported to PyTorch and CUDA for an NVIDIA H100.
+
+A second package beside the JAX reference ``repro``: it imports torch
+and numpy and nothing of JAX or of ``repro``.  Entry points run on the
+card unless the caller passes ``device="cpu"``.
+
+Package map:
+  * ``repro_torch.core``    — Ozaki INT8 split-GEMM engine, precision
+    policies, the backend registry and eager matmul offload;
+  * ``repro_torch.kernels`` — the CUDA split-GEMM kernels (built from
+    ``kernels/csrc`` at first use), their plain versions and the tile
+    rule;
+  * ``repro_torch.apps``    — the MuST Green's-function contour study.
+"""
+
+__version__ = "0.1.0"
