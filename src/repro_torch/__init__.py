@@ -11,7 +11,13 @@ Package map:
   * ``repro_torch.kernels`` — the CUDA split-GEMM kernels (built from
     ``kernels/csrc`` at first use), their plain versions and the tile
     rule;
-  * ``repro_torch.apps``    — the MuST Green's-function contour study.
+  * ``repro_torch.apps``    — the MuST Green's-function contour study;
+  * ``repro_torch.configs`` — the LM presets (``smollm_360m`` and the
+    test sizes);
+  * ``repro_torch.models``  — the decoder-only LM and its serving
+    programs;
+  * ``repro_torch.serve``   — the continuous-batching engine (paged or
+    dense KV cache, chunked prefill, fifo/edf admission).
 """
 
 __version__ = "0.1.0"

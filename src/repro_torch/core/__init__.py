@@ -10,7 +10,7 @@ Layers:
 
 from .backends import (GemmBackend, example_specs, get_backend,
                        register_backend, registered_families)
-from .intercept import Site, offload, site_report
+from .intercept import Site, offload, scan, site_report
 from .ozaki import (SLICE_BITS, num_pair_gemms, ozaki_matmul,
                     pair_indices, slice_matrix)
 from .precision import (AdaptiveGemm, PrecisionPolicy, SiteState,
@@ -37,6 +37,7 @@ __all__ = [
     "predict_splits",
     "register_backend",
     "registered_families",
+    "scan",
     "site_report",
     "slice_matrix",
     "splits_for_tolerance",

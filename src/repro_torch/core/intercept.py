@@ -7,33 +7,43 @@ counterpart of link-time interception is a
 :class:`torch.overrides.TorchFunctionMode` around the call:
 :func:`offload` runs ``fn`` under a mode that catches every
 ``torch.matmul`` / ``Tensor.__matmul__`` / ``Tensor.matmul``,
-``torch.mm``, ``torch.bmm``, ``torch.addmm`` and ``F.linear`` call.
+``torch.mm``, ``torch.bmm``, ``torch.addmm``, ``F.linear`` and
+two-operand ``torch.einsum`` call.
 
 Each caught call is a *site*, named ``dot{i}`` in call order with the
 counter reset per call of ``fn``.  For straight-line programs,
 including Python loops (which JAX unrolls into the jaxpr), these are
-the reference's names.  Rank-N operands are normalised the way
-``jnp.matmul`` lowers them to ``dot_general`` — broadcast batch axes of
+the reference's names.  :func:`scan` is the port's ``jax.lax.scan``:
+under an offload it opens a scope, so the sites of its body are named
+``scan{i}/dot{j}`` — ``i`` counts the control-flow scopes of the
+enclosing scope (the reference's one counter for scan, while and cond),
+``j`` restarts per body, every iteration shares the names, and
+``Site.mult`` is the trip count.  Rank-N operands are normalised the
+way ``jnp.matmul`` lowers them to ``dot_general`` — broadcast batch axes of
 one operand become free axes merged into M or N, size-1 batch axes are
-squeezed, the others stay batch — so each site's ``m``/``k``/``n``/
-``batch``, its operand shapes and its gates equal the reference's; the
-2-D backend then runs over the merged batch axis ``(B, M, K) @
-(B, K, N)``.  A site passes the reference's dtype gate (floating or
-complex) and ``min_dim`` gate, honours ``site_splits`` /
-``site_backends`` (``"dgemm"`` demotes it to native), and unmatched
-override keys are handled per ``policy.on_unmatched_site``.
+squeezed, the others stay batch — and an ``einsum`` the way
+``jnp.einsum`` lowers it (which operand becomes the ``dot_general``'s
+left-hand side, batch axes in output order, contracted axes sorted), so
+each site's ``m``/``k``/``n``/``batch``, its operand shapes and its
+gates equal the reference's; the 2-D backend then runs over the merged
+batch axis ``(B, M, K) @ (B, K, N)``.  A site passes the reference's
+dtype gate (floating or complex) and ``min_dim`` gate, honours
+``site_splits`` / ``site_backends`` (``"dgemm"`` demotes it to
+native), and unmatched override keys are handled per
+``policy.on_unmatched_site``.
 
 Each offloaded site runs under a :class:`torch.autograd.Function` whose
 backward computes ``dA = g @ B^T`` and ``dB = A^T @ g`` through the same
 backend, as the reference's ``custom_vjp`` does.
 
-Not ported yet: ``scan``/``cond``/``shard_map`` scopes, ``plan=``,
-``persist_dir``, ``on_site_event`` and ``einsum`` sites (ROADMAP).
+Not ported yet: ``cond``/``while``/``shard_map`` scopes, ``plan=``,
+``persist_dir`` and ``on_site_event`` (ROADMAP).
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import warnings
 from typing import Dict, List
 
@@ -44,7 +54,7 @@ from torch.overrides import TorchFunctionMode
 from .backends import GemmBackend, get_backend
 from .precision import PrecisionPolicy
 
-__all__ = ["offload", "site_report", "Site"]
+__all__ = ["offload", "scan", "site_report", "Site"]
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -56,9 +66,10 @@ class Site:
 
     The reference's record: operand shapes as ``dot_general`` sees them,
     the normalized extents ``m``/``k``/``n``/``batch``, the trip
-    multiplicity ``mult`` (always 1 here: no scan scopes yet), the SPMD
-    axes (none yet), the resolved ``backend`` spec, ``eligible`` (passed
-    the dtype and size gates) and, for the kernel family, ``tiles``.
+    multiplicity ``mult`` (the product of the enclosing :func:`scan`
+    lengths), the SPMD axes (none yet), the resolved ``backend`` spec,
+    ``eligible`` (passed the dtype and size gates) and, for the kernel
+    family, ``tiles``.
     """
 
     def __init__(self, name: str, lhs_shape, rhs_shape, dtype,
@@ -201,12 +212,185 @@ class _MatmulDims:
         return y.permute(*[order.index(t) for t in want])
 
 
+class _EinsumDims:
+    """``jnp.einsum``'s lowering of a two-operand einsum to ``dot_general``.
+
+    ``opt_einsum`` hands ``jnp.einsum`` the operands in reverse order,
+    ``L`` = the second and ``R`` = the first.  A size-1 axis of ``L``
+    facing a larger one in ``R`` is squeezed, then the same for ``R``
+    against what is left of ``L``; contracted names are sorted, batch
+    names follow the output, and the ``dot_general`` is ``R @ L`` when
+    that yields the output names in order (batch, R's free, L's free),
+    else ``L @ R``.  ``pack`` builds ``(B, M, K)`` / ``(B, K, N)`` and
+    ``unpack`` the einsum's output from ``(B, M, N)``.
+    """
+
+    def __init__(self, equation: str, lhs_shape, rhs_shape):
+        eq = equation.replace(" ", "")
+        if "..." in eq or "->" not in eq:
+            raise NotImplementedError(
+                f"einsum {equation!r}: offload handles explicit "
+                "two-operand equations without an ellipsis")
+        inputs, out = eq.split("->")
+        names = inputs.split(",")
+        shapes = [tuple(lhs_shape), tuple(rhs_shape)]
+        if len(names) != 2 or any(len(n) != len(set(n)) for n in names) \
+                or any(len(n) != len(sh) for n, sh in zip(names, shapes)):
+            raise NotImplementedError(
+                f"einsum {equation!r}: offload handles two operands "
+                "without repeated indices")
+        # [L, R] = [second, first], as (name, shape) pairs.
+        ops_ = [(names[1], shapes[1]), (names[0], shapes[0])]
+        self.squeeze = {}
+        for i in (0, 1):
+            own, shape = ops_[i]
+            other, oshape = ops_[1 - i]
+            drop = [d for d, c in enumerate(own)
+                    if shape[d] == 1 and other.find(c) != -1
+                    and oshape[other.find(c)] != 1]
+            self.squeeze[1 - i] = drop   # keyed by torch operand index
+            ops_[i] = ("".join(c for d, c in enumerate(own)
+                               if d not in drop),
+                       tuple(x for d, x in enumerate(shape)
+                             if d not in drop))
+        (ln, ls), (rn, rs) = ops_
+        contracted = sorted(c for c in set(ln) | set(rn) if c not in out)
+        if any(c not in ln or c not in rn for c in contracted):
+            raise NotImplementedError(
+                f"einsum {equation!r}: an index summed out of one "
+                "operand alone is not a matmul")
+        batch = [c for c in out if c in ln and c in rn]
+        gone = set(batch) | set(contracted)
+        l_rest = [c for c in ln if c not in gone]
+        r_rest = [c for c in rn if c not in gone]
+        # dot_general(R, L) when that lists the output in order, i.e.
+        # the torch operands in their own order; else (L, R), swapped.
+        self.swap = "".join(batch + r_rest + l_rest) != out
+        if not self.swap:
+            (ln, ls, l_rest), (rn, rs, r_rest) = ((rn, rs, r_rest),
+                                                  (ln, ls, l_rest))
+        size = dict(zip(ln, ls))
+        size.update(zip(rn, rs))
+        self.lhs_shape, self.rhs_shape = ls, rs
+        self.lperm = [ln.index(c) for c in batch + l_rest + contracted]
+        self.rperm = [rn.index(c) for c in batch + contracted + r_rest]
+        self.batch_shape = tuple(size[c] for c in batch)
+        self.m_shape = tuple(size[c] for c in l_rest)
+        self.n_shape = tuple(size[c] for c in r_rest)
+        self.B = math.prod(self.batch_shape)
+        self.M = math.prod(self.m_shape)
+        self.K = math.prod(size[c] for c in contracted)
+        self.N = math.prod(self.n_shape)
+        got = batch + l_rest + r_rest
+        self.out_perm = [got.index(c) for c in out]
+
+    def pack(self, a, b):
+        for d in reversed(self.squeeze[0]):
+            a = a.squeeze(d)
+        for d in reversed(self.squeeze[1]):
+            b = b.squeeze(d)
+        if self.swap:
+            a, b = b, a
+        a3 = a.permute(*self.lperm).reshape(self.B, self.M, self.K)
+        b3 = b.permute(*self.rperm).reshape(self.B, self.K, self.N)
+        return a3, b3
+
+    def unpack(self, y3):
+        y = y3.reshape(self.batch_shape + self.m_shape + self.n_shape)
+        return y.permute(*self.out_perm)
+
+
+class _Scope:
+    """A naming scope: the top level of ``fn`` or one :func:`scan` body."""
+
+    def __init__(self, prefix: str = "", mult: int = 1):
+        self.prefix = prefix
+        self.mult = mult
+        self.dots = 0        # dot{j} counter
+        self.flows = 0       # scan/while/cond counter (the reference's)
+        self.record = True   # False on a scan's later iterations
+
+
+class _Active(threading.local):
+    """Offload modes running ``fn`` in this thread, innermost last;
+    :func:`scan` opens its scope in the innermost (torch keeps its
+    function-mode stack per thread too)."""
+
+    def __init__(self):
+        self.modes: List["_OffloadMode"] = []
+
+
+_ACTIVE = _Active()
+
+
+def _stack(outs):
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    if isinstance(first, dict):
+        return {key: _stack([o[key] for o in outs]) for key in first}
+    return type(first)(_stack(list(parts)) for parts in zip(*outs))
+
+
+def _slice(xs, i):
+    if isinstance(xs, torch.Tensor):
+        return xs[i]
+    if isinstance(xs, dict):
+        return {key: _slice(val, i) for key, val in xs.items()}
+    return type(xs)(_slice(x, i) for x in xs)
+
+
+def _length(xs) -> int:
+    if isinstance(xs, torch.Tensor):
+        return xs.shape[0]
+    vals = list(xs.values()) if isinstance(xs, dict) else list(xs)
+    return _length(vals[0])
+
+
+def scan(body, carry, xs):
+    """``jax.lax.scan`` for eager torch: loop ``body`` over the leading
+    axis of ``xs`` (a tensor, or a dict/tuple/list of them).
+
+    ``body(carry, x) -> (carry, y)``; returns the last carry and the
+    ``y`` of every step stacked along a new leading axis (``None`` if
+    ``body`` returns no ``y``).  Under :func:`offload` or
+    :func:`site_report` the loop is a naming scope: the body's sites
+    are ``scan{i}/dot{j}``, shared by every iteration, with ``mult``
+    multiplied by the trip count.
+    """
+    n = _length(xs)
+    mode = _ACTIVE.modes[-1] if _ACTIVE.modes else None
+    scope = None
+    if mode is not None:
+        parent = mode.scopes[-1]
+        scope = _Scope(f"{parent.prefix}scan{parent.flows}/",
+                       parent.mult * n)
+        scope.record = parent.record
+        parent.flows += 1
+        mode.scopes.append(scope)
+    ys = []
+    try:
+        for i in range(n):
+            if scope is not None:
+                scope.dots = scope.flows = 0
+                scope.record = scope.record and i == 0
+            carry, y = body(carry, _slice(xs, i))
+            ys.append(y)
+    finally:
+        if scope is not None:
+            mode.scopes.pop()
+    return carry, (_stack(ys) if ys else None)
+
+
 class _Call:
     """One caught call: its matmul operands and how to finish it."""
 
-    def __init__(self, lhs, rhs, finish=None):
+    def __init__(self, lhs, rhs, finish=None, equation=None):
         self.lhs, self.rhs = lhs, rhs
         self.finish = finish or (lambda prod: prod)
+        self.equation = equation    # set for an einsum
 
 
 def _addmm_finish(inp, beta, alpha):
@@ -221,6 +405,15 @@ def _parse_call(func, args, kwargs):
     """The matmul operands of a caught call, or None to run it natively."""
     if kwargs.get("out") is not None:
         return None
+    if func is torch.einsum:
+        if kwargs or not args or not isinstance(args[0], str):
+            return None
+        ops_ = args[1:]
+        if len(ops_) == 1 and isinstance(ops_[0], (list, tuple)):
+            ops_ = tuple(ops_[0])
+        if len(ops_) != 2:
+            return None
+        return _Call(ops_[0], ops_[1], equation=args[0])
     if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
                 torch.mm, torch.Tensor.mm, torch.bmm, torch.Tensor.bmm):
         if len(args) != 2 or kwargs:
@@ -256,11 +449,11 @@ def _tile_choice(backend_spec: str, m, k, n, splits, dtype):
         fused=backend_spec.endswith(":fused")).summary()
 
 
-def _classify(dims: _MatmulDims, dtype, policy: PrecisionPolicy,
-              name: str) -> Site:
+def _classify(dims, dtype, policy: PrecisionPolicy, name: str,
+              mult: int = 1) -> Site:
     """Decide whether one matmul site gets offloaded."""
     m, k, n = dims.M, dims.K, dims.N
-    geom = dict(m=m, k=k, n=n, batch=dims.B)
+    geom = dict(m=m, k=k, n=n, batch=dims.B, mult=mult)
 
     def skip(reason, eligible=False, backend=""):
         return Site(name, dims.lhs_shape, dims.rhs_shape, dtype, False, 0,
@@ -343,6 +536,17 @@ class _OffloadMode(TorchFunctionMode):
         self.engine_for = engine_for
         self.execute = execute
         self.sites: List[Site] = []
+        self.scopes = [_Scope()]
+
+    def run(self, fn, args, kwargs):
+        """``fn(*args, **kwargs)`` under this mode, as :func:`scan`'s
+        innermost scope owner."""
+        _ACTIVE.modes.append(self)
+        try:
+            with self:
+                return fn(*args, **kwargs)
+        finally:
+            _ACTIVE.modes.pop()
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -350,10 +554,15 @@ class _OffloadMode(TorchFunctionMode):
         if call is None:
             return func(*args, **kwargs)
         lhs, rhs = call.lhs, call.rhs
-        dims = _MatmulDims(lhs.shape, rhs.shape)
+        dims = (_MatmulDims(lhs.shape, rhs.shape) if call.equation is None
+                else _EinsumDims(call.equation, lhs.shape, rhs.shape))
         dtype = torch.promote_types(lhs.dtype, rhs.dtype)
-        site = _classify(dims, dtype, self.policy, f"dot{len(self.sites)}")
-        self.sites.append(site)
+        scope = self.scopes[-1]
+        site = _classify(dims, dtype, self.policy,
+                         f"{scope.prefix}dot{scope.dots}", scope.mult)
+        scope.dots += 1
+        if scope.record:
+            self.sites.append(site)
         if not (self.execute and site.offloaded):
             return func(*args, **kwargs)
         run = _batched(self.engine_for(site), site)
@@ -385,8 +594,7 @@ def offload(fn, policy: PrecisionPolicy | None = None):
 
     def wrapped(*args, **kwargs):
         mode = _OffloadMode(policy, engine_for, execute=True)
-        with mode:
-            out = fn(*args, **kwargs)
+        out = mode.run(fn, args, kwargs)
         _check_overrides(policy, mode.sites)
         return out
 
@@ -412,8 +620,7 @@ def site_report(fn, policy: PrecisionPolicy | None = None):
 
     def reporter(*args, **kwargs) -> List[Site]:
         mode = _OffloadMode(policy, None, execute=False)
-        with mode:
-            fn(*args, **kwargs)
+        mode.run(fn, args, kwargs)
         return mode.sites
 
     reporter.__name__ = f"site_report({getattr(fn, '__name__', 'fn')})"

@@ -129,11 +129,17 @@ def _int8_pair_products(a_sl, b_sl, ii, jj):
     return int8_matmul_exact(a_p, b_p)
 
 
-# Pair counts up to this sum in plain schedule order; above it the
-# reference's compiled reduction splits into vector lanes (see below).
-_SEQUENTIAL_MAX_PAIRS = 36
-_LANES = 4        # float64 lanes of one 256-bit vector
-_PARTS = 4        # independent vector accumulators
+# The reference's f64 accumulator is ``einsum("p,pmn->mn")``, which
+# XLA's CPU backend compiles into a loop over the m*n outputs whose
+# inner sum over the P pairs carries LLVM's ``reassoc`` flag.  The
+# order below was read off the compiled code (``--xla_dump_to`` object
+# files, P = 45, 55, 66, 78; m*n = 1, 2, 4, 5, 21, 4096, 16384) and
+# then confirmed on random int32 products for P = 45..91 and m*n in
+# 1..69, 96..257, 1000, 4096 and 16384 (ROADMAP, section 3).
+_SEQUENTIAL_MAX_PAIRS = 36   # s <= 8: the loop is not vectorized
+_LANES = 4                   # float64 lanes of one 256-bit vector
+_PARTS = 4                   # interleaved vector accumulators
+_BLOCK = _LANES * _PARTS     # pairs per vectorized iteration
 
 
 def _lane_sum(v):
@@ -141,47 +147,64 @@ def _lane_sum(v):
     return (v[0] + v[2]) + (v[1] + v[3])
 
 
-def _reference_order_sum(terms):
-    """Sum ``terms`` (P, ...) over P in the order of the reference.
+def _sequential_sum(terms):
+    acc = torch.zeros_like(terms[0])
+    for p in range(terms.shape[0]):
+        acc = acc + terms[p]
+    return acc
 
-    The reference's f64 accumulator is an ``einsum`` over the pair
-    axis, which XLA's CPU backend compiles into a reassociating loop.
-    Up to 36 pairs (s <= 8) the loop is unrolled and sums in schedule
-    order.  From 45 pairs (s = 9) it is vectorized 4 lanes wide with 4
-    accumulators over blocks of 16 pairs, then one 4-lane epilogue
-    vector per remaining group of 4, then the last pairs one by one;
-    this function repeats that order so the two packages agree to the
-    bit for s <= 9 (for s >= 10 the reference's order is not
-    reproduced; see ROADMAP).  Every term is exact (an int32 times a
-    power of two); only the order rounds.
+
+def _tail_lanes(n_terms: int, outputs: int) -> int:
+    """Vector width of the compiled loop's epilogue over the pairs left
+    after the 16-pair blocks: 2 for s = 10 with at most 8 outputs, else
+    4 (for the other pair counts both widths give the same bits on
+    every probed input, since the tail terms sit far below the sum)."""
+    return 2 if n_terms == 55 and outputs <= 8 else _LANES
+
+
+def _reference_order_sum(terms):
+    """Sum ``terms`` (P, m, n) over P in the order of the reference.
+
+    Up to 36 pairs (s <= 8), and for 45 pairs (s = 9) when m*n <= 2,
+    the compiled loop sums in schedule order.  Otherwise it is
+    vectorized 4 lanes wide with 4 interleaved accumulators over blocks
+    of 16 pairs, and the backend contracts each multiply-add into an
+    FMA, which chains the four accumulators into one per lane: the
+    lane adds part 0 of every block, then, for parts 1 to 3, block 1,
+    block 0, block 2, block 3, ...  The lanes are summed as (l0 + l2) +
+    (l1 + l3).  The pairs left over run through an epilogue vector of
+    :func:`_tail_lanes` lanes seeded with the sum, then one by one.
+    Every term is exact (an int32 times a power of two; the FMA's
+    product is exact too), so only this order rounds.
     """
     n_terms = terms.shape[0]
-    if n_terms <= _SEQUENTIAL_MAX_PAIRS:
-        acc = torch.zeros_like(terms[0])
-        for p in range(n_terms):
-            acc = acc + terms[p]
-        return acc
-    block = _LANES * _PARTS
-    main = (n_terms // block) * block
-    parts = []
-    for u in range(_PARTS):
-        lo = _LANES * u
-        acc = terms[lo:lo + _LANES]
-        for start in range(block, main, block):
-            acc = acc + terms[start + lo:start + lo + _LANES]
-        parts.append(acc)
-    acc = parts[0]
-    for part in parts[1:]:
-        acc = part + acc
+    outputs = math.prod(terms.shape[1:])
+    blocks = n_terms // _BLOCK
+    if n_terms <= _SEQUENTIAL_MAX_PAIRS or (n_terms == 45
+                                             and outputs <= 2):
+        return _sequential_sum(terms)
+
+    def part(b, u):
+        start = b * _BLOCK + u * _LANES
+        return terms[start:start + _LANES]
+
+    acc = torch.zeros_like(terms[:_LANES])
+    for b in range(blocks):
+        acc = acc + part(b, 0)
+    later = [1, 0, *range(2, blocks)] if blocks > 1 else [0]
+    for u in range(1, _PARTS):
+        for b in later:
+            acc = acc + part(b, u)
     total = _lane_sum(acc)
-    p = main
-    if n_terms - p >= _LANES:
-        vec = torch.cat([total[None], torch.full_like(terms[1:_LANES],
-                                                      -0.0)])
-        while p + _LANES <= n_terms:
-            vec = vec + terms[p:p + _LANES]
-            p += _LANES
-        total = _lane_sum(vec)
+    p = blocks * _BLOCK
+    lanes = _tail_lanes(n_terms, outputs)
+    if n_terms - p >= lanes:
+        vec = torch.cat([total[None],
+                         torch.full_like(terms[1:lanes], -0.0)])
+        while p + lanes <= n_terms:
+            vec = vec + terms[p:p + lanes]
+            p += lanes
+        total = _lane_sum(vec) if lanes == _LANES else vec[0] + vec[1]
     for q in range(p, n_terms):
         total = total + terms[q]
     return total

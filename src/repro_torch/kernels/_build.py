@@ -91,6 +91,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _IP, _IP, _IP, _I,
         _I, _P]
     lib.split_gemm_fused_launch.restype = _I
+    lib.split_gemm_v1_launch.argtypes = [
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.split_gemm_v1_launch.restype = _I
     lib.split_gemm_error_string.argtypes = [_I]
     lib.split_gemm_error_string.restype = ctypes.c_char_p
 

@@ -1,6 +1,6 @@
 // Ozaki INT8 split-GEMM kernels for Hopper (sm_90a).
 //
-// Two kernels compute the compensated-f32 (df32) fold of the Ozaki
+// Three kernels compute the compensated-f32 (df32) fold of the Ozaki
 // scheme's slice-pair products:
 //
 //   for each output tile, for each pair p = (ii[p], jj[p]) with
@@ -8,6 +8,9 @@
 //     part = A_slice[ii[p]][:, ktile] @ B_slice[jj[p]][ktile, :]  (int32)
 //     term = float(part) * 2**wexp[p]
 //     (hi, err) = TwoSum(hi, term);  lo += err
+//
+// K1 and K2 index the slices through the pair schedule; K3 reads
+// pre-gathered pair copies and a per-pair f32 weight array instead.
 //
 // The fold order (pair-major, then k-tile, then TwoSum) is part of the
 // result's bits and follows the reference exactly.  Inside one k-tile
@@ -18,7 +21,7 @@
 // reassociation can change a bit; the library is also built with
 // -fmad=false and never with --use_fast_math.
 //
-// Both kernels launch from plain C functions (no PyTorch headers) that
+// All kernels launch from plain C functions (no PyTorch headers) that
 // return the cudaError_t of cudaGetLastError(); the Python wrapper in
 // repro_torch/kernels/ops.py binds them with ctypes and raises on a
 // non-zero code.
@@ -275,13 +278,15 @@ __device__ __forceinline__ void mma_chunk(int8_t (*As)[LDS],
   }
 }
 
-// Shared body of both kernels.  Stage(As, Bs, p, kc) fills one chunk.
-template <typename Stage>
-__device__ __forceinline__ void split_gemm_body(const PairSchedule& sched,
+// Shared body of all kernels.  Stage(As, Bs, p, kc) fills one chunk
+// of pair p; Weight(p) is pair p's exact power-of-two weight.
+template <typename Stage, typename Weight>
+__device__ __forceinline__ void split_gemm_body(int num_pairs,
                                                 float* __restrict__ hi_out,
                                                 float* __restrict__ lo_out,
                                                 int m, int k, int n,
-                                                int block_k, Stage stage) {
+                                                int block_k, Stage stage,
+                                                Weight weight) {
   __shared__ __align__(16) int8_t As[CTA_M][LDS];
   __shared__ __align__(16) int8_t Bs[CTA_N][LDS];
 
@@ -298,8 +303,8 @@ __device__ __forceinline__ void split_gemm_body(const PairSchedule& sched,
 #pragma unroll
       for (int c = 0; c < 4; ++c) hi[mi][ni][c] = lo[mi][ni][c] = 0.0f;
 
-  for (int p = 0; p < sched.num_pairs; ++p) {
-    const float w = pow2f(sched.wexp[p]);
+  for (int p = 0; p < num_pairs; ++p) {
+    const float w = weight(p);
     for (int k0 = 0; k0 < k; k0 += block_k) {
       int acc[2][4][4];
 #pragma unroll
@@ -359,14 +364,15 @@ split_gemm_kernel(const int8_t* __restrict__ a_sl,
   const size_t a_layer = (size_t)m * k, b_layer = (size_t)k * n;
   const bool vec_a = (k % 16) == 0, vec_b = (n % 16) == 0;
   const int m0 = blockIdx.y * CTA_M, n0 = blockIdx.x * CTA_N;
-  split_gemm_body(sched, hi_out, lo_out, m, k, n, block_k,
+  split_gemm_body(sched.num_pairs, hi_out, lo_out, m, k, n, block_k,
                   [&](int8_t (*As)[LDS], int8_t (*Bs)[LDS], int p,
                       int kc) {
                     stage_a_int8(As, a_sl + sched.ii[p] * a_layer, m0, kc,
                                  m, k, vec_a);
                     stage_b_int8(Bs, b_sl + sched.jj[p] * b_layer, n0, kc,
                                  k, n, vec_b);
-                  });
+                  },
+                  [&](int p) { return pow2f(sched.wexp[p]); });
 }
 
 // K2 — replaces src/repro/kernels/ops.py::split_gemm_pallas_fused (body
@@ -391,14 +397,46 @@ split_gemm_fused_kernel(const float* __restrict__ a_hi,
   const float radix = (float)(1 << slice_bits);
   const bool vec_a = (k % 4) == 0, vec_b = (n % 4) == 0;
   const int m0 = blockIdx.y * CTA_M, n0 = blockIdx.x * CTA_N;
-  split_gemm_body(sched, hi_out, lo_out, m, k, n, block_k,
+  split_gemm_body(sched.num_pairs, hi_out, lo_out, m, k, n, block_k,
                   [&](int8_t (*As)[LDS], int8_t (*Bs)[LDS], int p,
                       int kc) {
                     stage_a_fused(As, a_hi, a_lo, m0, kc, m, k,
                                   sched.ii[p], radix, vec_a);
                     stage_b_fused(Bs, b_hi, b_lo, n0, kc, k, n,
                                   sched.jj[p], radix, vec_b);
-                  });
+                  },
+                  [&](int p) { return pow2f(sched.wexp[p]); });
+}
+
+// K3 — replaces src/repro/kernels/ops.py::split_gemm_pallas_v1 (body
+// _split_gemm_kernel_v1): K1's fold over pair copies the host gathered
+// beforehand, a_pairs[p] = A_slice[ii[p]] and b_pairs[p] =
+// B_slice[jj[p]], with pair p's weight read from the device array
+// w[p] instead of being assembled from exponent bits.
+//
+// Bound on an H100 SXM: K1's int8 ops against bytes P*(m*k + k*n) +
+// 4*P + 8*m*n (every pair copy read once): the bytes are the larger at
+// the MuST shape.  Kept, like the reference's v1, for the A/B check
+// against K1 and the traffic row; it shares K1's CTA body, so its
+// design leaves the same on the table, plus the P pair copies.
+__global__ void __launch_bounds__(THREADS)
+split_gemm_v1_kernel(const int8_t* __restrict__ a_pairs,
+                     const int8_t* __restrict__ b_pairs,
+                     const float* __restrict__ weights,
+                     float* __restrict__ hi_out, float* __restrict__ lo_out,
+                     int m, int k, int n, int block_k, int num_pairs) {
+  const size_t a_layer = (size_t)m * k, b_layer = (size_t)k * n;
+  const bool vec_a = (k % 16) == 0, vec_b = (n % 16) == 0;
+  const int m0 = blockIdx.y * CTA_M, n0 = blockIdx.x * CTA_N;
+  split_gemm_body(num_pairs, hi_out, lo_out, m, k, n, block_k,
+                  [&](int8_t (*As)[LDS], int8_t (*Bs)[LDS], int p,
+                      int kc) {
+                    stage_a_int8(As, a_pairs + p * a_layer, m0, kc, m, k,
+                                 vec_a);
+                    stage_b_int8(Bs, b_pairs + p * b_layer, n0, kc, k, n,
+                                 vec_b);
+                  },
+                  [&](int p) { return __ldg(weights + p); });
 }
 
 cudaError_t make_schedule(const int* ii, const int* jj, const int* wexp,
@@ -466,6 +504,25 @@ cudaError_t split_gemm_fused_launch(const void* a_hi, const void* a_lo,
       (const float*)a_hi, (const float*)a_lo, (const float*)b_hi,
       (const float*)b_lo, (float*)hi, (float*)lo, m, k, n, block_k,
       slice_bits, sched);
+  return cudaGetLastError();
+}
+
+// K3 launcher: a_pairs (P, m, k) int8, b_pairs (P, k, n) int8, weights
+// (P,) f32 -> hi, lo (m, n) f32, all contiguous on `device`.
+cudaError_t split_gemm_v1_launch(const void* a_pairs, const void* b_pairs,
+                                 const void* weights, void* hi, void* lo,
+                                 int m, int k, int n, int block_k,
+                                 int num_pairs, int device, void* stream) {
+  cudaError_t err = check_dims(m, k, n, block_k);
+  if (err != cudaSuccess) return err;
+  if (num_pairs < 1) return cudaErrorInvalidValue;
+  err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaGetLastError();
+  const dim3 grid((n + CTA_N - 1) / CTA_N, (m + CTA_M - 1) / CTA_M);
+  split_gemm_v1_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int8_t*)a_pairs, (const int8_t*)b_pairs, (const float*)weights,
+      (float*)hi, (float*)lo, m, k, n, block_k, num_pairs);
   return cudaGetLastError();
 }
 

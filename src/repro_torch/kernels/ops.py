@@ -1,8 +1,8 @@
 """Ozaki split-GEMM kernels for Hopper, their plain versions and wrappers.
 
-Port of :mod:`repro.kernels.ops`.  Two kernels, written in CUDA C++ for
-``sm_90a`` in ``csrc/split_gemm.cu``, replace the two Pallas kernels
-on the main path:
+Port of :mod:`repro.kernels.ops`.  Three kernels, written in CUDA C++
+for ``sm_90a`` in ``csrc/split_gemm.cu``, replace the three Pallas
+kernels:
 
 * **K1** :func:`split_gemm` — replaces ``split_gemm_pallas``: pre-sliced
   int8 stacks ``a_sl (s, m, k)`` / ``b_sl (s, k, n)`` in, the
@@ -10,9 +10,16 @@ on the main path:
 * **K2** :func:`split_gemm_fused` — replaces ``split_gemm_pallas_fused``:
   the operands enter as exact f32 ``(hi, lo)`` halves of the
   sigma-scaled A and B and are quantized to int8 in shared memory, so no
-  slice reaches device memory.
+  slice reaches device memory;
+* **K3** :func:`split_gemm_v1` — replaces ``split_gemm_pallas_v1``, the
+  legacy kernel: the wrapper first gathers every slice pair into a
+  ``(P, m, k)`` / ``(P, k, n)`` copy plus a per-pair f32 weight array
+  (:func:`gather_pairs`), and the kernel reads pair ``p``'s operands
+  and weight from them.  It is kept for the A/B check against K1 (the
+  two are bitwise equal) and for the traffic accounting of
+  :func:`repro_torch.kernels.tile_model.traffic`.
 
-For each output tile both walk the slice pairs in schedule order and,
+For each output tile all three walk the slice pairs in schedule order and,
 inside each pair, the ``block_k``-wide k-tiles; each step's exact int32
 partial is weighted by ``2**((s-1-i-j)*w)`` and TwoSum-folded into
 ``hi`` with ``lo += err``.  The emulated product is
@@ -20,7 +27,8 @@ partial is weighted by ``2**((s-1-i-j)*w)`` and TwoSum-folded into
 
 Each wrapper runs the kernel for CUDA tensors (or raises) and the
 kernel's plain version, :func:`split_gemm_plain` /
-:func:`split_gemm_fused_plain`, for CPU tensors; there is no fallback
+:func:`split_gemm_fused_plain` / :func:`split_gemm_v1_plain`, for CPU
+tensors; there is no fallback
 from one to the other.  The plain versions execute the kernel's loop
 nest in eager torch (pair-major, then k-tile, then the TwoSum fold) and
 are held bitwise against the Pallas kernels in interpret mode by the
@@ -41,15 +49,18 @@ from . import _build, slicing, tile_model
 
 __all__ = [
     "LAUNCHES",
+    "gather_pairs",
     "ozaki_matmul",
     "split_gemm",
     "split_gemm_fused",
     "split_gemm_fused_plain",
     "split_gemm_plain",
+    "split_gemm_v1",
+    "split_gemm_v1_plain",
 ]
 
 #: Launches of each CUDA kernel, counted where the wrapper launches it.
-LAUNCHES = {"split_gemm": 0, "split_gemm_fused": 0}
+LAUNCHES = {"split_gemm": 0, "split_gemm_fused": 0, "split_gemm_v1": 0}
 
 
 def pair_schedule_arrays(num_splits: int, slice_bits: int):
@@ -82,6 +93,38 @@ def split_gemm_plain(a_sl, b_sl, num_splits: int,
     for p in range(len(ii)):
         w = float(np.ldexp(np.float32(1.0), int(wexp[p])))
         hi, lo = _fold_k_tiles(hi, lo, a_sl[ii[p]], b_sl[jj[p]], w, bk)
+    return hi, lo
+
+
+def gather_pairs(a_sl, b_sl, num_splits: int,
+                 slice_bits: int = SLICE_BITS):
+    """K3's staging: the pair copies ``a_sl[ii]`` (P, m, k) and
+    ``b_sl[jj]`` (P, k, n), contiguous, and the per-pair f32 weights
+    ``2**((s-1-i-j)*w)``, built exactly with ``np.ldexp`` as the
+    reference builds them."""
+    ii, jj = pair_indices(num_splits)
+    dev = a_sl.device
+    a_pairs = a_sl[torch.as_tensor(ii, dtype=torch.long, device=dev)]
+    b_pairs = b_sl[torch.as_tensor(jj, dtype=torch.long, device=dev)]
+    w = np.ldexp(np.float32(1.0), (num_splits - 1 - (ii + jj)) * slice_bits)
+    weights = torch.as_tensor(w.astype(np.float32), device=dev)
+    return a_pairs.contiguous(), b_pairs.contiguous(), weights
+
+
+def split_gemm_v1_plain(a_sl, b_sl, num_splits: int,
+                        slice_bits: int = SLICE_BITS, block_k: int = 128):
+    """Plain version of K3: gather the pairs, then fold pair ``p`` with
+    the weight read from the array."""
+    k = a_sl.shape[2]
+    bk = tile_model.effective_block_k(k, block_k)
+    a_pairs, b_pairs, weights = gather_pairs(a_sl, b_sl, num_splits,
+                                             slice_bits)
+    m, n = a_pairs.shape[1], b_pairs.shape[2]
+    hi = torch.zeros((m, n), dtype=torch.float32, device=a_sl.device)
+    lo = torch.zeros_like(hi)
+    for p in range(a_pairs.shape[0]):
+        hi, lo = _fold_k_tiles(hi, lo, a_pairs[p], b_pairs[p],
+                               float(weights[p]), bk)
     return hi, lo
 
 
@@ -206,6 +249,44 @@ def split_gemm_fused(a_hi, a_lo, b_hi, b_lo, num_splits: int,
         wexp, pairs, dev.index or 0, stream)
     _raise_on(lib, code, "split_gemm_fused")
     LAUNCHES["split_gemm_fused"] += 1
+    return hi, lo
+
+
+def split_gemm_v1(a_sl, b_sl, num_splits: int,
+                  slice_bits: int = SLICE_BITS, block_k: int = 128):
+    """K3, the legacy kernel: ``(hi, lo)`` f32 of shape (m, n).
+
+    Same contract and bits as :func:`split_gemm`; the wrapper stages
+    the pair copies and weights with :func:`gather_pairs` and the
+    kernel reads them, so device memory holds P = s(s+1)/2 pair copies
+    instead of s slice layers.
+    """
+    dev = a_sl.device
+    _check_inputs({"a_sl": a_sl, "b_sl": b_sl}, torch.int8, dev)
+    s, m, k = a_sl.shape
+    s2, k2, n = b_sl.shape
+    if s != num_splits or s2 != num_splits or k2 != k:
+        raise ValueError(f"slice stacks {tuple(a_sl.shape)} @ "
+                         f"{tuple(b_sl.shape)} do not match "
+                         f"num_splits={num_splits}")
+    if dev.type == "cpu":
+        return split_gemm_v1_plain(a_sl, b_sl, num_splits, slice_bits,
+                                   block_k)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    bk = tile_model.effective_block_k(k, block_k)
+    lib = _build.load()
+    a_pairs, b_pairs, weights = gather_pairs(a_sl, b_sl, num_splits,
+                                             slice_bits)
+    hi = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lo = torch.empty_like(hi)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.split_gemm_v1_launch(
+        a_pairs.data_ptr(), b_pairs.data_ptr(), weights.data_ptr(),
+        hi.data_ptr(), lo.data_ptr(), m, k, n, bk, a_pairs.shape[0],
+        dev.index or 0, stream)
+    _raise_on(lib, code, "split_gemm_v1")
+    LAUNCHES["split_gemm_v1"] += 1
     return hi, lo
 
 

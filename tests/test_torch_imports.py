@@ -1,5 +1,6 @@
 """The port stands alone: nothing under src/repro_torch, and no line of
-chip_smoke.py, imports jax or the reference package ``repro``."""
+chip_smoke.py or tools/serve_ab.py, imports jax or the reference
+package ``repro``."""
 
 import ast
 import pathlib
@@ -29,7 +30,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py"],
+    "path", PORT_FILES + [ROOT / "chip_smoke.py",
+                          ROOT / "tools" / "serve_ab.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -43,7 +45,8 @@ def test_import_graph_has_no_jax_or_reference():
         "import sys, runpy\n"
         f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels, "
-        "repro_torch.apps\n"
+        "repro_torch.apps, repro_torch.configs, repro_torch.models, "
+        "repro_torch.serve\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, "
         "run_name='not_main')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

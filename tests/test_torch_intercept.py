@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from repro.core import PrecisionPolicy as PolicyRef
 from repro.core import offload as offload_ref
 from repro.core import site_report as site_report_ref
-from repro_torch.core import PrecisionPolicy, offload, site_report
+from repro_torch.core import PrecisionPolicy, offload, scan, site_report
 from torch_parity import same_bits
 
 # One intra-op thread: tier-1 runs several test processes at once,
@@ -204,3 +204,126 @@ class TestUnmatchedOverrides:
             offload(lambda a: a @ a, PrecisionPolicy(
                 min_dim=16, site_splits={"dot9": 4},
                 on_unmatched_site="ignore"))(a)
+
+
+def _scan_program_jax(x, ws):
+    def inner(c, w):
+        return c @ w, None
+
+    def body(c, w):
+        h = c @ w["a"]
+        h, _ = jax.lax.scan(inner, h, w["c"])
+        return h @ w["b"] * 0.5, None
+
+    x, _ = jax.lax.scan(body, x, ws)
+    y = x @ ws["a"][0]
+    y, _ = jax.lax.scan(inner, y, ws["b"])
+    return y
+
+
+def _scan_program_torch(x, ws):
+    def inner(c, w):
+        return c @ w, None
+
+    def body(c, w):
+        h = c @ w["a"]
+        h, _ = scan(inner, h, w["c"])
+        return h @ w["b"] * 0.5, None
+
+    x, _ = scan(body, x, ws)
+    y = x @ ws["a"][0]
+    y, _ = scan(inner, y, ws["b"])
+    return y
+
+
+def _scan_inputs(dtype=np.float64):
+    x = _arr((160, 144), 30, dtype)
+    ws = {"a": _arr((3, 144, 144), 31, dtype) * 0.1,
+          "b": _arr((3, 144, 144), 32, dtype) * 0.1,
+          "c": _arr((3, 2, 144, 144), 33, dtype) * 0.1}
+    return x, ws
+
+
+def _mult_record(site):
+    return _record(site) + (site.mult,)
+
+
+class TestScanScopes:
+    @pytest.mark.parametrize("kw", [
+        dict(min_dim=128),
+        dict(min_dim=128, site_splits={"scan0/scan0/dot0": 9},
+             site_backends={"scan0/dot1": "dgemm"}),
+        dict(min_dim=200),
+    ])
+    def test_site_names_mult_and_decisions_match(self, kw):
+        x, ws = _scan_inputs()
+        p_ref, p_port = _policies(**kw)
+        r = site_report_ref(_scan_program_jax, p_ref)(
+            jnp.asarray(x), {k: jnp.asarray(v) for k, v in ws.items()})
+        t = site_report(_scan_program_torch, p_port)(
+            torch.from_numpy(x),
+            {k: torch.from_numpy(v) for k, v in ws.items()})
+        assert [_mult_record(s) for s in t] == [_mult_record(s) for s in r]
+        assert [s.name for s in t] == [
+            "scan0/dot0", "scan0/scan0/dot0", "scan0/dot1", "dot0",
+            "scan1/dot0"]
+        assert [s.mult for s in t] == [3, 6, 3, 1, 3]
+
+    def test_offloaded_scan_bitwise(self):
+        x, ws = _scan_inputs()
+        p_ref, p_port = _policies(min_dim=128, backend="fp64_int8_5")
+        r = offload_ref(_scan_program_jax, p_ref)(
+            jnp.asarray(x), {k: jnp.asarray(v) for k, v in ws.items()})
+        t = offload(_scan_program_torch, p_port)(
+            torch.from_numpy(x),
+            {k: torch.from_numpy(v) for k, v in ws.items()})
+        assert same_bits(r, t)
+
+    def test_scan_stacks_outputs_and_runs_without_offload(self):
+        xs = (torch.arange(6.0).reshape(3, 2), torch.ones(3))
+
+        def body(c, x):
+            a, b = x
+            return c + b, {"sum": a.sum(), "pair": (a, b)}
+
+        c, ys = scan(body, torch.tensor(0.0), xs)
+        assert float(c) == 3.0
+        assert ys["sum"].tolist() == [1.0, 5.0, 9.0]
+        assert torch.equal(ys["pair"][0], xs[0])
+        assert scan(lambda c, x: (c, None), 0, torch.zeros(2)) == (0, None)
+
+
+class TestEinsumSites:
+    @pytest.mark.parametrize("eq,sa,sb", [
+        ("bthd,bshd->bhts", (2, 64, 4, 32), (2, 128, 4, 32)),
+        ("bhts,bshd->bthd", (2, 4, 64, 128), (2, 128, 4, 32)),
+        ("bthd,bshd->bhts", (2, 1, 4, 32), (2, 128, 4, 32)),
+        ("ij,jk->ik", (130, 140), (140, 150)),
+        ("ij,kj->ik", (130, 140), (150, 140)),
+        ("bij,jk->bik", (3, 130, 140), (140, 150)),
+        ("bij,bjk->bik", (1, 130, 140), (3, 140, 150)),
+    ])
+    def test_sites_and_results_match(self, eq, sa, sb):
+        a, b = _arr(sa, 40), _arr(sb, 41)
+        p_ref, p_port = _policies(min_dim=16, backend="fp64_int8_6")
+        r = site_report_ref(lambda x, y: jnp.einsum(eq, x, y), p_ref)(
+            jnp.asarray(a), jnp.asarray(b))
+        t = site_report(lambda x, y: torch.einsum(eq, x, y), p_port)(
+            torch.from_numpy(a), torch.from_numpy(b))
+        assert [_record(s) for s in t] == [_record(s) for s in r]
+        r = offload_ref(lambda x, y: jnp.einsum(eq, x, y), p_ref)(
+            jnp.asarray(a), jnp.asarray(b))
+        t = offload(lambda x, y: torch.einsum(eq, x, y), p_port)(
+            torch.from_numpy(a), torch.from_numpy(b))
+        assert same_bits(r, t)
+
+    def test_unsupported_forms_raise(self):
+        a = torch.ones(4, 4)
+        pol = PrecisionPolicy(min_dim=1)
+        with pytest.raises(NotImplementedError):
+            site_report(lambda x: torch.einsum("ii,ij->j", x, x), pol)(a)
+        with pytest.raises(NotImplementedError):
+            site_report(lambda x: torch.einsum("...i,ij->...j", x, x),
+                        pol)(a)
+        # One operand is not a matmul: no site, runs natively.
+        assert site_report(lambda x: torch.einsum("ij->j", x), pol)(a) == []

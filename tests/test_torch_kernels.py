@@ -73,6 +73,22 @@ class TestPlainKernelsAgainstPallas:
         hi_t, lo_t = ops.split_gemm_fused(th, tl, uh, ul, s, block_k=bk)
         assert same_bits(hi_r, hi_t) and same_bits(lo_r, lo_t)
 
+    def test_k3_plain_bitwise(self, m, k, n, bk, num_splits, dtype):
+        # K3 against the reference's v1 kernel in interpret mode, and
+        # against K1's plain version (v1 == v2, the reference's A/B).
+        a, b = _operands(m, k, n, 19, dtype)
+        s = num_splits
+        bk = _block_k(m, k, n, s, False, bk)
+        t_a, _ = core_port.slice_matrix(torch.from_numpy(a), s, axis=1)
+        t_b, _ = core_port.slice_matrix(torch.from_numpy(b), s, axis=0)
+        hi_r, lo_r = ops_ref.split_gemm_pallas_v1(
+            jnp.asarray(t_a.numpy()), jnp.asarray(t_b.numpy()), s,
+            block_k=bk, interpret=True)
+        hi_t, lo_t = ops.split_gemm_v1(t_a, t_b, s, block_k=bk)
+        assert same_bits(hi_r, hi_t) and same_bits(lo_r, lo_t)
+        hi_1, lo_1 = ops.split_gemm_plain(t_a, t_b, s, block_k=bk)
+        assert torch.equal(hi_1, hi_t) and torch.equal(lo_1, lo_t)
+
 
 class TestSlicing:
     @pytest.mark.parametrize("axis", [0, 1])
@@ -169,7 +185,22 @@ class TestWrapper:
                                                        np.float64))
         ops.ozaki_matmul(a, b, num_splits=3)
         ops.ozaki_matmul(a, b, num_splits=3, fuse_slicing=True)
+        a_sl, _ = core_port.slice_matrix(a, 3, axis=1)
+        ops.split_gemm_v1(a_sl, a_sl, 3)
         assert ops.LAUNCHES == before
+
+    def test_gathered_pairs_and_weights(self):
+        a_sl = torch.arange(4 * 2 * 3, dtype=torch.int8).reshape(4, 2, 3)
+        b_sl = -a_sl.transpose(1, 2).contiguous()
+        a_p, b_p, w = ops.gather_pairs(a_sl, b_sl, 4)
+        ii, jj = core_port.pair_indices(4)
+        assert torch.equal(a_p, a_sl[list(ii)])
+        assert torch.equal(b_p, b_sl[list(jj)])
+        assert w.dtype == torch.float32
+        assert w.tolist() == [2.0 ** ((3 - i - j) * 6)
+                              for i, j in zip(ii, jj)]
+        with pytest.raises(ValueError):
+            ops.split_gemm_v1(a_sl, b_sl, 3)
 
 
 class TestTileRule:
@@ -211,3 +242,43 @@ class TestTileRule:
                 ti, tj = tile_model.pair_schedule(s, mode)
                 assert np.array_equal(ri, ti) and np.array_equal(rj, tj)
 
+
+
+class TestTraffic:
+    @pytest.mark.parametrize("fused", [False, True])
+    @pytest.mark.parametrize("m,k,n,s", [(128, 128, 128, 6),
+                                         (256, 256, 4096, 6),
+                                         (37, 130, 51, 3),
+                                         (1, 129, 1, 9)])
+    def test_formula_at_the_cuda_blocks(self, m, k, n, s, fused):
+        bk = tile_model.block_k_for(k)
+        t = tile_model.traffic(m, k, n, s, fused=fused)
+        mp, kp, np_ = (tile_model.align_up(m, 64),
+                       tile_model.align_up(k, bk),
+                       tile_model.align_up(n, 64))
+        elems = mp * kp + kp * np_
+        pairs = s * (s + 1) // 2
+        steps = (mp // 64) * (np_ // 64) * pairs * (kp // bk)
+        assert t.slice_read_bytes_v1 == pairs * elems
+        assert t.slice_read_bytes_v2 == s * elems
+        assert t.stage_bytes_v1 == s * elems + 2 * pairs * elems
+        assert t.stage_bytes_v2 == (8 * elems if fused else s * elems)
+        assert t.stream_bytes == steps * (8 if fused else 1) * (
+            64 * bk + bk * 64)
+        assert t.out_bytes == 8 * mp * np_
+        assert t.read_reduction == pytest.approx((s + 1) / 2)
+        # The reference's accounting at the same blocks.
+        r = tile_ref.traffic(m, k, n, s, 64, 64, bk, fused=fused)
+        assert vars(t) == vars(r)
+
+    def test_read_reduction_is_s_plus_1_over_2(self):
+        for s in range(1, 10):
+            t = tile_model.traffic(256, 256, 256, s)
+            assert t.read_reduction == pytest.approx((s + 1) / 2)
+
+    def test_decisions_carry_the_traffic(self):
+        d = tile_model.select_tiles(256, 256, 4096, 6)
+        assert d.traffic_model == tile_model.traffic(256, 256, 4096, 6)
+        assert d.traffic_model.total_v1 > d.traffic_model.total_v2
+        assert tile_model.select_tiles(None, 96, None, 4).traffic_model \
+            is None

@@ -5,6 +5,7 @@ and the PyTorch port on the CPU; every result must agree to the bit
 (compared as raw bytes), over the cases of ``tests/test_ozaki.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,6 +122,41 @@ class TestOzakiMatmulBitwise:
             port.ozaki_matmul(a, a, num_splits=0)
         with pytest.raises(ValueError):
             port.ozaki_matmul(a, a, accumulator="f16")
+
+
+class TestF64AccumulatorOrder:
+    """The f64 accumulator's sum order follows the reference's compiled
+    loop beyond s = 9 and for single-output products (ROADMAP §3)."""
+
+    @pytest.mark.parametrize("num_splits", [10, 11, 12])
+    def test_128_cube_above_s9(self, num_splits):
+        a, b = _gauss((128, 128), 20), _gauss((128, 128), 21)
+        r, t = _both(a, b, num_splits=num_splits, accumulator="f64")
+        assert same_bits(r, t)
+
+    @pytest.mark.parametrize("seed", [0, 1, 2, 3])
+    def test_single_output_at_s9(self, seed):
+        a, b = _gauss((1, 129), 30 + seed), _gauss((129, 1), 40 + seed)
+        r, t = _both(a, b, num_splits=9, accumulator="f64")
+        assert same_bits(r, t)
+
+    @pytest.mark.parametrize("num_splits", [8, 9, 10, 11, 12])
+    def test_order_on_random_products(self, num_splits):
+        # Full-range int32 products make nearly every sum order-
+        # sensitive, so any departure from the compiled order shows.
+        # The weights are compile-time constants, as inside the
+        # reference's jitted ozaki_matmul (called eagerly, the einsum
+        # takes them as a parameter and compiles to another order).
+        ii, jj = ref.pair_indices(num_splits)
+        shifts = ii + jj
+        acc = jax.jit(lambda prod: ref._accumulate_f64(prod, shifts, 6))
+        rng = np.random.default_rng(num_splits)
+        for outputs in (1, 2, 3, 5, 8, 9, 21, 129, 4096):
+            prod = rng.integers(-2**31 + 1, 2**31 - 1,
+                                size=(len(ii), 1, outputs)).astype(np.int32)
+            r = acc(jnp.asarray(prod))
+            t = port._accumulate_f64(torch.from_numpy(prod), shifts, 6)
+            assert same_bits(r, t), outputs
 
 
 class TestAccuracyLadder:
