@@ -9,21 +9,22 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
 1. prints the card's name and power limit and the kernels' build;
 2. holds K1, K2 and K3 bitwise (hi and lo, tolerance 0) against their
    plain PyTorch versions on the card, and K3 against K1, at the listed
-   shapes and split counts, K2 from f32 and from f64 sources; and K1
-   and K3 so at the GEMM shapes the serve phase gives K1 (every
-   projection and MLP (k, n) of SmolLM-360M, m a full and a ragged
-   wave);
+   shapes and split counts, K2 from f32 and from f64 sources and also
+   at s = 1, 2, 14, 16 on two of them; and K1, K2 and K3 so at the GEMM
+   shapes the serve phase gives K1 (every projection and MLP (k, n) of
+   SmolLM-360M, m a full and a ragged wave: two and five k-tiles);
 3. runs the accuracy ladder at 4096^2 in float64 through
    ``pallas_int8_s`` for s = 3..9;
 4. runs the MuST Green's-function contour (n=4096, block=256, 9
    energies) through ``dgemm`` and the kernel modes — one main path —
    with the launch counters zeroed just before and read just after,
    and checks the Table-1 ladder, the Figure-1 peak and the launch
-   counts; then profiles one energy point of it for the device's busy
-   share;
-5. runs K3's path, the reference's v1/v2 A/B check: K3 against K1 at
-   the MuST shape for s = 3, 6, 9, counters zeroed before and read
-   after, with the traffic figures of ``tile_model.traffic``;
+   counts; then profiles one energy point of ``pallas_int8_6`` and of
+   ``pallas_int8_6:fused`` for the device's busy share and K2's share;
+5. runs K3's path, the reference's v1/v2 A/B check: K3 (its gather
+   kernel, then its split-GEMM kernel) against K1 at the MuST shape for
+   s = 3, 6, 9, counters zeroed before and read after, with the traffic
+   figures of ``tile_model.traffic``;
 6. serves SmolLM-360M at full width (32 layers, random weights from a
    seed) through ``repro_torch.serve.Engine`` — the other main path —
    natively (``dgemm``) and through ``pallas_int8_6``: prefill and
@@ -34,18 +35,33 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    computes (softmax and SwiGLU gate in float32, as the reference) and
    once with those float32 stages raised to float64, where the ladder
    shows the emulated GEMMs' own error;
-7. times each kernel, its plain version, its bound and the library
-   call it stands in for at the MuST shape (256, 256, 4096), s=6;
+7. times each kernel, its bound, the library call it stands in for and
+   the pair products as ``torch._int_mm`` at the MuST shape (256, 256,
+   4096) for s = 3, 6, 9, the plain versions at s = 6, and K3's kernel
+   alone on gathered copies beside its gather;
 8. prints one JSON line describing every ported kernel, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 Every phase that fails raises, so the script exits non-zero and prints
-no result line.  TF32 is switched off for matmuls and cuDNN at start,
+no result line.
+
+    python3 chip_smoke.py --fused-ab PARENT_DIR CHANGE_DIR [PAIRS]
+
+compares K2 and the fused MuST contour of two checkouts of the port on
+the card instead (for example ``git archive`` of two commits unpacked
+into directories that ``.gitignore`` lists): pair i runs PARENT then
+CHANGE, pair i+1 CHANGE then PARENT (2 pairs by default), each in a
+process of its own from its checkout's root, and prints every run and
+the medians.  A run times K2 at the MuST shape (256, 256, 4096), s = 6,
+with CUDA events, the ``pallas_int8_6:fused`` contour (n=4096,
+block=256, 9 energies) on the host clock, and one profiled energy
+point (E_f) of it: the device's busy time and K2's.  TF32 is switched off for matmuls and cuDNN at start,
 so every float32 product the script computes is full float32.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +77,8 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 FERMI = 0.72
 SPLITS = (3, 6, 9)
+# K2 is also held at the fewest and the most splits it takes.
+K2_EXTRA_SPLITS = (1, 2, 14, 16)
 # The float64 LM's logits ladder (max relative error).  With the
 # float32 softmax and gate it falls to float32 rounding and sits there,
 # under LM_FLOOR.  With those stages in float64 it follows the GEMMs:
@@ -89,6 +107,29 @@ def timed(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, name, reps=20):
+    """Mean device milliseconds per launch of the kernels whose name
+    contains ``name`` when ``fn`` runs, from the profiler's trace: the
+    kernel alone, whatever the host's time to issue it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if name in e.key]
+    count = sum(e.count for e in found)
+    if not count:
+        return None
+    return sum(e.self_device_time_total for e in found) / 1e3 / count
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bits_equal(x, y):
@@ -124,9 +165,24 @@ def phase_card():
     info = _build.build_info()
     print(f"[build] {info['path']} built={info['built']} "
           f"in {time.perf_counter() - t0:.2f} s")
+    # ptxas -v: registers, static shared memory and spills per kernel
+    # (K2 once per compiled capacity of held partials).
+    name = "?"
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"[build] {line.strip()}")
+        found = re.search(r"entry function '.*?"
+                          r"(split_gemm(?:_fused|_v1)?_kernel|"
+                          r"gather_pairs_kernel)"
+                          r"(?:ILi(\d+)E)?", line)
+        if found:
+            name = found.group(1) + (f"<{found.group(2)}>"
+                                     if found.group(2) else "")
+        elif "registers" in line or "spill" in line or "error" in line:
+            print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
+    from repro_torch.kernels import tile_model
+    print("[build] dynamic shared memory: split_gemm_fused_kernel "
+          + ", ".join(f"s={s} {tile_model.fused_plan(s, 1).smem_bytes} B"
+                      for s in (1, 6, 9, 16))
+          + f"; split_gemm_v1_kernel {tile_model.V1_SMEM_BYTES} B")
 
 
 def serve_gemm_shapes(cfg):
@@ -146,14 +202,16 @@ def phase_kernels_vs_plain(errs):
     gen = np.random.default_rng(0)
     shapes = [(37, 130, 51), (1, 129, 1), (100, 1100, 60), (256, 256, 4096)]
     for m, k, n in shapes:
-        for s in SPLITS:
+        extra = K2_EXTRA_SPLITS if (m, k, n) in ((100, 1100, 60),
+                                                 (256, 256, 4096)) else ()
+        for s in SPLITS + extra:
             bk = tile_model.select_tiles(m, k, n, s).block_k
             for dtype in (torch.float32, torch.float64):
                 a = torch.from_numpy(gen.standard_normal((m, k))).to(
                     "cuda", dtype)
                 b = torch.from_numpy(gen.standard_normal((k, n))).to(
                     "cuda", dtype)
-                if dtype == torch.float64:
+                if dtype == torch.float64 and s in SPLITS:
                     a_sl, _ = slice_matrix(a, s, axis=1)
                     b_sl, _ = slice_matrix(b, s, axis=0)
                     got = ops.split_gemm(a_sl, b_sl, s, block_k=bk)
@@ -165,6 +223,7 @@ def phase_kernels_vs_plain(errs):
                     check("split_gemm_v1", got3, want3, errs, (m, k, n, s))
                     check("split_gemm_v1 vs split_gemm", got3, got, {},
                           (m, k, n, s))
+                    check_gather(a_sl, b_sl, s, errs, (m, k, n, s))
                 ah, al, _ = slicing.to_operand_pair(a, axis=1)
                 bh, bl, _ = slicing.to_operand_pair(b, axis=0)
                 got = ops.split_gemm_fused(ah, al, bh, bl, s, block_k=bk)
@@ -175,7 +234,8 @@ def phase_kernels_vs_plain(errs):
     torch.cuda.synchronize()
     print(f"[kernels] K1, K2 and K3 bitwise equal to their plain versions "
           f"and K3 to K1 on {len(shapes)} shapes x s in {SPLITS} "
-          f"(K2 from f32 and f64 sources)")
+          f"(K2 from f32 and f64 sources, and also at s in "
+          f"{K2_EXTRA_SPLITS} on (100, 1100, 60) and (256, 256, 4096))")
 
     # The serve phase's K1 shapes: m = a full 2 x 256 wave and a ragged
     # one-row wave, (k, n) every offloaded site of the LM.
@@ -196,10 +256,22 @@ def phase_kernels_vs_plain(errs):
                     a_sl, b_sl, s, block_k=bk), errs, (m, k, n, s))
                 check("split_gemm_v1 vs split_gemm", got3, got, {},
                       (m, k, n, s))
+                check_gather(a_sl, b_sl, s, errs, (m, k, n, s))
+                for src in (a.float(), a):
+                    ah, al, _ = slicing.to_operand_pair(src, axis=1)
+                    bh, bl, _ = slicing.to_operand_pair(b.to(src.dtype),
+                                                        axis=0)
+                    check("split_gemm_fused",
+                          ops.split_gemm_fused(ah, al, bh, bl, s,
+                                               block_k=bk),
+                          ops.split_gemm_fused_plain(ah, al, bh, bl, s,
+                                                     block_k=bk),
+                          errs, (m, k, n, s, str(src.dtype)))
     torch.cuda.synchronize()
-    print(f"[kernels] K1 and K3 bitwise equal to their plain versions and "
-          f"K3 to K1 at SmolLM-360M's GEMM shapes: m in (512, 221) x "
-          f"(k, n) in {kn} x s in {SPLITS}")
+    print(f"[kernels] K1, K2 and K3 bitwise equal to their plain versions "
+          f"and K3 to K1 at SmolLM-360M's GEMM shapes: m in (512, 221) x "
+          f"(k, n) in {kn} x s in {SPLITS} (K2 from f32 and f64 "
+          f"sources)")
 
     # The scales on the card against the CPU, where the port equals the
     # reference: log rounding decides sigma at exact powers of two.
@@ -226,6 +298,21 @@ def check(name, got, want, errs, case):
              f"max abs err {err}, {len(bad)} hi elements differ "
              f"(first {bad[:4].tolist()}), |hi+lo| differs by "
              f"{float(total)}")
+
+
+def check_gather(a_sl, b_sl, s, errs, case):
+    """Fail unless K3's gather kernel writes its plain version's bytes."""
+    from repro_torch.kernels import ops
+
+    got = ops.gather_pairs_kmajor(a_sl, b_sl, s)
+    want = ops.gather_pairs_kmajor_plain(a_sl, b_sl, s)
+    err = max(int((g.int() - w.int()).abs().max()) for g, w in
+              zip(got[:2], want[:2]))
+    errs["gather_pairs_kmajor"] = max(errs.get("gather_pairs_kmajor", 0),
+                                      err)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"gather_pairs_kmajor differs from its plain version at "
+             f"{case}: max abs err {err}")
 
 
 def phase_ladder(size=4096):
@@ -294,7 +381,7 @@ def phase_must(n=4096, block=256, n_energies=9):
             fail(f"{mode} error peaks at energy index {peak}, not at the "
                  f"energies nearest E_f ({sorted(nearest)})")
     expected = {"split_gemm": 3 * calls, "split_gemm_fused": calls,
-                "split_gemm_v1": 0}
+                "split_gemm_v1": 0, "gather_pairs_kmajor": 0}
     print(f"[must] launches {launches}, expected {expected} "
           f"({must.block_gemm_calls(cfg)} block GEMMs per energy x "
           f"{cfg.n_energies} energies x 4 real GEMMs per mode)")
@@ -307,8 +394,10 @@ def phase_must(n=4096, block=256, n_energies=9):
     return launches
 
 
-def phase_profile(n=4096, block=256):
-    """Device busy share of one energy point of pallas_int8_6."""
+def phase_profile(mode, n=4096, block=256, n_energies=9):
+    """Device busy share of one energy point of ``mode``, and for the
+    fused mode K2's share of the device time and its extrapolation to
+    the contour's ``n_energies`` energies."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.apps import must
@@ -318,7 +407,7 @@ def phase_profile(n=4096, block=256):
     h = torch.as_tensor(must.build_system(cfg)["H"], device="cuda")
     m_mat = complex(FERMI + 1j * cfg.eta) * torch.eye(
         n, dtype=torch.complex128, device="cuda") - h
-    gemm = must._make_gemm("pallas_int8_6")
+    gemm = must._make_gemm(mode)
     saved = dict(ops.LAUNCHES)
     must._blocked_inverse(m_mat, block, gemm)  # warm
     torch.cuda.synchronize()
@@ -332,16 +421,24 @@ def phase_profile(n=4096, block=256):
     events = prof.key_averages()
     busy = sum(e.self_device_time_total for e in events) / 1e6
     if busy <= 0:
-        print("[profile] no device time in the trace: busy share not "
-              "measured")
+        print(f"[profile] {mode}: no device time in the trace: busy share "
+              "not measured")
         return
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[profile] one energy (E_f), pallas_int8_6, n={n}: wall "
+    print(f"[profile] one energy (E_f), {mode}, n={n}: wall "
           f"{wall:.3f} s (profiled), device busy {busy:.3f} s, idle share "
           f"{1 - busy / wall:.3f}")
     for e in top:
         print(f"[profile]   {e.key[:70]}: "
               f"{e.self_device_time_total / 1e3:.1f} ms over {e.count} calls")
+    if mode.endswith(":fused"):
+        k2 = [e for e in events if "split_gemm_fused" in e.key]
+        k2_s = sum(e.self_device_time_total for e in k2) / 1e6
+        calls = sum(e.count for e in k2)
+        print(f"[profile] {mode}: K2 {k2_s * 1e3:.1f} ms over {calls} "
+              f"launches, {k2_s / busy:.3f} of the device time, "
+              f"{k2_s / wall:.3f} of the wall; x {n_energies} energies "
+              f"= {k2_s * n_energies:.2f} s of K2 per contour")
 
 
 def phase_v1_ab(errs, m=256, k=256, n=4096):
@@ -367,7 +464,7 @@ def phase_v1_ab(errs, m=256, k=256, n=4096):
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     if launches != {"split_gemm": 0, "split_gemm_fused": 0,
-                    "split_gemm_v1": 3}:
+                    "split_gemm_v1": 3, "gather_pairs_kmajor": 3}:
         fail(f"K3 path launch counts {launches}")
     t = tile_model.traffic(m, k, n, 6)
     if t.read_reduction != 3.5:
@@ -529,7 +626,8 @@ def phase_serve(checked_kn, seed=3, n_requests=8, max_new=16, splits=6,
           f"offloaded sites x layers per shape {per_shape}, "
           f"{per_tick} per decode tick x {rec['ticks']} ticks)")
     if launches != {"split_gemm": predicted, "split_gemm_fused": 0,
-                    "split_gemm_v1": 0} or predicted == 0:
+                    "split_gemm_v1": 0, "gather_pairs_kmajor": 0} \
+            or predicted == 0:
         fail(f"serve launch counts {launches} != predicted {predicted}")
     same = sum(a == b for a, b in zip(toks_native, toks_emul))
     print(f"[serve] dgemm and pallas_int8_{splits} greedy streams equal for "
@@ -645,73 +743,197 @@ def phase_lm_ladder(seed=3, tokens_per_row=256, **overrides):
 
 
 def phase_timings(errs, launches, m=256, k=256, n=4096):
+    """Each kernel at the MuST shape for s in SPLITS; the JSON rows are
+    s = 6's.  Bounds: int8 ops 2*m*n*k*P at PEAK_INT8_OPS against the
+    bytes each function must move at PEAK_BYTES."""
     from repro_torch.core.ozaki import num_pair_gemms, slice_matrix
     from repro_torch.kernels import ops, slicing, tile_model
 
-    s = 6
-    pairs = num_pair_gemms(s)
-    bk = tile_model.select_tiles(m, k, n, s).block_k
     gen = np.random.default_rng(2)
     a = torch.from_numpy(gen.standard_normal((m, k))).cuda()
     b = torch.from_numpy(gen.standard_normal((k, n))).cuda()
-    a_sl, _ = slice_matrix(a, s, axis=1)
-    b_sl, _ = slice_matrix(b, s, axis=0)
     ah, al, _ = slicing.to_operand_pair(a, axis=1)
     bh, bl, _ = slicing.to_operand_pair(b, axis=0)
     saved = dict(ops.LAUNCHES)
 
-    library_ms = timed(lambda: a @ b, 20)
-    ia = [a_sl[i].contiguous() for i in range(s)]
-    ib = [b_sl[j].contiguous() for j in range(s)]
-    ii, jj = tile_model.pair_schedule(s)
-    int_mm_ms = timed(lambda: [torch._int_mm(ia[i], ib[j])
-                               for i, j in zip(ii, jj)], 10)
-    ops_count = 2 * m * n * k * pairs
-    rows = []
-    specs = [
-        ("split_gemm", "src/repro/kernels/ops.py:186",
-         lambda: ops.split_gemm(a_sl, b_sl, s, block_k=bk),
-         lambda: ops.split_gemm_plain(a_sl, b_sl, s, block_k=bk),
-         s * (m * k + k * n) + 8 * m * n),
-        ("split_gemm_fused", "src/repro/kernels/ops.py:252",
-         lambda: ops.split_gemm_fused(ah, al, bh, bl, s, block_k=bk),
-         lambda: ops.split_gemm_fused_plain(ah, al, bh, bl, s, block_k=bk),
-         8 * (m * k + k * n) + 8 * m * n),
-        # K3 reads the P gathered pair copies and the weight array; the
-        # timed call includes the wrapper's gather, as the reference's.
-        ("split_gemm_v1", "src/repro/kernels/ops.py:315",
-         lambda: ops.split_gemm_v1(a_sl, b_sl, s, block_k=bk),
-         lambda: ops.split_gemm_v1_plain(a_sl, b_sl, s, block_k=bk),
-         pairs * (m * k + k * n) + 4 * pairs + 8 * m * n),
-    ]
-    for name, replaces, kernel, plain, nbytes in specs:
-        ms = timed(kernel, 50)
-        plain_ms = timed(plain, 5)
+    def bound(ops_count, nbytes):
         t_ops = ops_count / PEAK_INT8_OPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/split_gemm.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms})
-        print(f"[time] {name} at (m,k,n)=({m},{k},{n}) s={s}: "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({rows[-1]['bound_by']}), f64 "
-              f"torch.matmul {library_ms:.4f} ms, {pairs} torch._int_mm "
-              f"{int_mm_ms:.4f} ms, {ops_count / ms / 1e9:.1f} int8 TOPS")
-    gather_ms = timed(lambda: ops.gather_pairs(a_sl, b_sl, s), 20)
-    t = tile_model.traffic(m, k, n, s)
-    print(f"[time] split_gemm_v1's gather_pairs alone {gather_ms:.4f} ms; "
-          f"traffic slice_read_bytes_v1 {t.slice_read_bytes_v1}, "
-          f"slice_read_bytes_v2 {t.slice_read_bytes_v2}, read_reduction "
-          f"{t.read_reduction}")
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+    library_ms = timed(lambda: a @ b, 20)
+    rows = []
+    for s in SPLITS:
+        pairs = num_pair_gemms(s)
+        bk = tile_model.select_tiles(m, k, n, s).block_k
+        a_sl, _ = slice_matrix(a, s, axis=1)
+        b_sl, _ = slice_matrix(b, s, axis=0)
+        ia = [a_sl[i].contiguous() for i in range(s)]
+        ib = [b_sl[j].contiguous() for j in range(s)]
+        ii, jj = tile_model.pair_schedule(s)
+        int_mm_ms = timed(lambda: [torch._int_mm(ia[i], ib[j])
+                                   for i, j in zip(ii, jj)], 10)
+        ops_count = 2 * m * n * k * pairs
+        layer = m * k + k * n
+        specs = [
+            ("split_gemm", "src/repro/kernels/ops.py:186",
+             lambda: ops.split_gemm(a_sl, b_sl, s, block_k=bk),
+             lambda: ops.split_gemm_plain(a_sl, b_sl, s, block_k=bk),
+             s * layer + 8 * m * n),
+            ("split_gemm_fused", "src/repro/kernels/ops.py:252",
+             lambda: ops.split_gemm_fused(ah, al, bh, bl, s, block_k=bk),
+             lambda: ops.split_gemm_fused_plain(ah, al, bh, bl, s,
+                                                block_k=bk),
+             8 * layer + 8 * m * n),
+            # K3 reads the P gathered pair copies and the weight array; the
+            # timed call includes the wrapper's gather, as the reference's.
+            ("split_gemm_v1", "src/repro/kernels/ops.py:315",
+             lambda: ops.split_gemm_v1(a_sl, b_sl, s, block_k=bk),
+             lambda: ops.split_gemm_v1_plain(a_sl, b_sl, s, block_k=bk),
+             pairs * layer + 4 * pairs + 8 * m * n),
+        ]
+        for name, replaces, kernel, plain, nbytes in specs:
+            ms = timed(kernel, 50)
+            dev_ms = device_ms(kernel, f"{name}_kernel")
+            bound_ms, bound_by = bound(ops_count, nbytes)
+            plain_ms = timed(plain, 5) if s == 6 else None
+            print(f"[time] {name} at (m,k,n)=({m},{k},{n}) s={s}: "
+                  f"{ms:.4f} ms (kernel on the device {fmt_ms(dev_ms)}), "
+                  f"plain "
+                  + (f"{plain_ms:.4f} ms" if plain_ms else "not timed")
+                  + f", bound {bound_ms:.4f} ms ({bound_by}), f64 "
+                  f"torch.matmul {library_ms:.4f} ms, {pairs} torch._int_mm "
+                  f"{int_mm_ms:.4f} ms, {ops_count / ms / 1e9:.1f} int8 TOPS")
+            if s == 6:
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/split_gemm.cu",
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": errs[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": library_ms})
+        # K3 split in two: its kernel alone on gathered copies, and the
+        # gather (P copies written, the s slice layers they come from
+        # read).
+        copies = ops.gather_pairs_kmajor(a_sl, b_sl, s)
+        alone_ms = timed(lambda: ops.split_gemm_v1_pairs(*copies,
+                                                         block_k=bk), 50)
+        alone_bound, alone_by = bound(ops_count,
+                                      pairs * layer + 4 * pairs + 8 * m * n)
+        gather = lambda: ops.gather_pairs_kmajor(a_sl, b_sl, s)  # noqa: E731
+        gather_ms = timed(gather, 50)
+        gather_dev = device_ms(gather, "gather_pairs_kernel")
+        gather_bound, _ = bound(0, pairs * layer + s * layer)
+        print(f"[time] split_gemm_v1 at s={s}: kernel alone {alone_ms:.4f} "
+              f"ms (bound {alone_bound:.4f} ms, {alone_by}), "
+              f"gather_pairs_kmajor {gather_ms:.4f} ms (kernel on the "
+              f"device {fmt_ms(gather_dev)}; bound {gather_bound:.4f} ms, "
+              f"bytes)")
+        if s == 6:
+            rows.append({
+                "name": "gather_pairs_kmajor", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/split_gemm.cu",
+                "replaces": "src/repro/kernels/ops.py:330",
+                "launches": launches["gather_pairs_kmajor"],
+                "max_abs_err": errs["gather_pairs_kmajor"], "ms": gather_ms,
+                "plain_ms": timed(lambda: ops.gather_pairs_kmajor_plain(
+                    a_sl, b_sl, s), 20),
+                "bound_ms": gather_bound, "bound_by": "bytes",
+                "library_ms": None})
+    t = tile_model.traffic(m, k, n, 6)
+    print(f"[time] traffic at s=6: slice_read_bytes_v1 "
+          f"{t.slice_read_bytes_v1}, slice_read_bytes_v2 "
+          f"{t.slice_read_bytes_v2}, read_reduction {t.read_reduction}")
     for key, val in saved.items():
         ops.LAUNCHES[key] = val
     return rows
+
+
+# One --fused-ab run, in its checkout; uses only what the parent and
+# the change both offer (the MuST app, K2's wrapper and its preamble).
+_FUSED_AB_RUN = """
+import sys, time
+import numpy as np, torch
+sys.path.insert(0, "src")
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.apps import must
+from repro_torch.kernels import ops, slicing
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+gen = np.random.default_rng(2)
+a = torch.from_numpy(gen.standard_normal((256, 256))).cuda()
+b = torch.from_numpy(gen.standard_normal((256, 4096))).cuda()
+ah, al, _ = slicing.to_operand_pair(a, axis=1)
+bh, bl, _ = slicing.to_operand_pair(b, axis=0)
+k2 = lambda: ops.split_gemm_fused(ah, al, bh, bl, 6, block_k=256)
+for _ in range(3):
+    k2()
+torch.cuda.synchronize()
+start = torch.cuda.Event(enable_timing=True)
+stop = torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(50):
+    k2()
+stop.record()
+torch.cuda.synchronize()
+k2_ms = start.elapsed_time(stop) / 50
+
+cfg = must.MustConfig(n=4096, block=256, n_energies=9)
+system = must.build_system(cfg)
+mode = "pallas_int8_6:fused"
+t0 = time.perf_counter()
+must.run_contour(cfg, mode, system)
+torch.cuda.synchronize()
+contour_s = time.perf_counter() - t0
+
+h = torch.as_tensor(system["H"], device="cuda")
+m_mat = complex(0.72 + 1j * cfg.eta) * torch.eye(
+    4096, dtype=torch.complex128, device="cuda") - h
+gemm = must._make_gemm(mode)
+must._blocked_inverse(m_mat, 256, gemm)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    must._blocked_inverse(m_mat, 256, gemm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+events = prof.key_averages()
+busy = sum(e.self_device_time_total for e in events) / 1e6
+fused = [e for e in events if "split_gemm_fused" in e.key]
+k2_s = sum(e.self_device_time_total for e in fused) / 1e6
+print(f"[fused-ab] k2_ms={k2_ms:.4f} contour_s={contour_s:.2f} "
+      f"energy_wall_s={wall:.3f} busy_s={busy:.3f} k2_s={k2_s:.3f} "
+      f"k2_launches={sum(e.count for e in fused)}")
+"""
+
+
+def fused_ab(parent, change, pairs=2):
+    """The --fused-ab comparison (module docstring)."""
+    import statistics
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; --fused-ab runs "
+                         "only on the card")
+    readings = {}   # (checkout, key) -> [value]
+    for i in range(int(pairs)):
+        order = [("parent", parent), ("change", change)]
+        for name, root in (order if i % 2 == 0 else order[::-1]):
+            proc = subprocess.run([sys.executable, "-c", _FUSED_AB_RUN],
+                                  cwd=root, capture_output=True, text=True,
+                                  timeout=600)
+            found = re.search(r"\[fused-ab\] (.*)", proc.stdout)
+            if proc.returncode != 0 or not found:
+                fail(f"--fused-ab: {name} run {i} failed:\n"
+                     f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+            print(f"[fused-ab] pair {i} {name}: {found.group(1)}",
+                  flush=True)
+            for key, val in re.findall(r"(\w+)=([\d.]+)", found.group(1)):
+                readings.setdefault((name, key), []).append(float(val))
+    for (name, key), vals in sorted(readings.items()):
+        print(f"[fused-ab] median {name} {key}: "
+              f"{statistics.median(vals):.4f} over {vals}")
 
 
 def main():
@@ -726,7 +948,8 @@ def main():
     checked_kn = phase_kernels_vs_plain(errs)
     phase_ladder()
     launches = phase_must()
-    phase_profile()
+    phase_profile("pallas_int8_6")
+    phase_profile("pallas_int8_6:fused")
     v1_launches = phase_v1_ab(errs)
     serve_launches = phase_serve(checked_kn)
     torch.cuda.empty_cache()
@@ -747,4 +970,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--fused-ab"]:
+        fused_ab(*sys.argv[2:])
+    else:
+        main()

@@ -13,10 +13,11 @@ kernels:
   slice reaches device memory;
 * **K3** :func:`split_gemm_v1` — replaces ``split_gemm_pallas_v1``, the
   legacy kernel: the wrapper first gathers every slice pair into a
-  ``(P, m, k)`` / ``(P, k, n)`` copy plus a per-pair f32 weight array
-  (:func:`gather_pairs`), and the kernel reads pair ``p``'s operands
-  and weight from them.  It is kept for the A/B check against K1 (the
-  two are bitwise equal) and for the traffic accounting of
+  ``(P, m, k)`` copy of A and a k-major ``(P, n, k)`` copy of B plus a
+  per-pair f32 weight array (:func:`gather_pairs_kmajor`, a gather
+  kernel of its own), and the kernel (:func:`split_gemm_v1_pairs`)
+  reads pair ``p``'s operands and weight from them.  It is kept for the A/B check against K1 (the two
+  are bitwise equal) and for the traffic accounting of
   :func:`repro_torch.kernels.tile_model.traffic`.
 
 For each output tile all three walk the slice pairs in schedule order and,
@@ -34,11 +35,15 @@ nest in eager torch (pair-major, then k-tile, then the TwoSum fold) and
 are held bitwise against the Pallas kernels in interpret mode by the
 CPU tests; ``chip_smoke.py`` holds the CUDA kernels bitwise against the
 plain versions on the card.  ``LAUNCHES`` counts kernel launches.
+
+The pair schedule is built once per ``(s, slice_bits)`` (and, for K3's
+gather, once per device) and shared by all three wrappers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -50,17 +55,21 @@ from . import _build, slicing, tile_model
 __all__ = [
     "LAUNCHES",
     "gather_pairs",
+    "gather_pairs_kmajor",
+    "gather_pairs_kmajor_plain",
     "ozaki_matmul",
     "split_gemm",
     "split_gemm_fused",
     "split_gemm_fused_plain",
     "split_gemm_plain",
     "split_gemm_v1",
+    "split_gemm_v1_pairs",
     "split_gemm_v1_plain",
 ]
 
 #: Launches of each CUDA kernel, counted where the wrapper launches it.
-LAUNCHES = {"split_gemm": 0, "split_gemm_fused": 0, "split_gemm_v1": 0}
+LAUNCHES = {"split_gemm": 0, "split_gemm_fused": 0, "split_gemm_v1": 0,
+            "gather_pairs_kmajor": 0}
 
 
 def pair_schedule_arrays(num_splits: int, slice_bits: int):
@@ -96,19 +105,90 @@ def split_gemm_plain(a_sl, b_sl, num_splits: int,
     return hi, lo
 
 
+@functools.lru_cache(maxsize=None)
+def _host_schedule(num_splits: int, slice_bits: int):
+    """(ii, jj, wexp) as ctypes int arrays, built once per schedule;
+    the K1 and K2 launchers copy them into the kernel's parameters."""
+    arrays = pair_schedule_arrays(num_splits, slice_bits)
+    return tuple((ctypes.c_int * len(x))(*x.tolist()) for x in arrays)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_schedule(num_splits: int, slice_bits: int,
+                     device: torch.device):
+    """K3's gather indices ``ii``, ``jj`` (int64) and per-pair f32
+    weights ``2**((s-1-i-j)*w)`` on ``device``, built once per
+    (s, slice_bits, device), the weights exactly with ``np.ldexp`` as
+    the reference builds them."""
+    ii, jj = pair_indices(num_splits)
+    w = np.ldexp(np.float32(1.0), (num_splits - 1 - (ii + jj)) * slice_bits)
+    return (torch.as_tensor(ii, dtype=torch.long, device=device),
+            torch.as_tensor(jj, dtype=torch.long, device=device),
+            torch.as_tensor(w.astype(np.float32), device=device))
+
+
 def gather_pairs(a_sl, b_sl, num_splits: int,
                  slice_bits: int = SLICE_BITS):
-    """K3's staging: the pair copies ``a_sl[ii]`` (P, m, k) and
-    ``b_sl[jj]`` (P, k, n), contiguous, and the per-pair f32 weights
-    ``2**((s-1-i-j)*w)``, built exactly with ``np.ldexp`` as the
-    reference builds them."""
-    ii, jj = pair_indices(num_splits)
+    """K3's staging as the reference lays it out: the pair copies
+    ``a_sl[ii]`` (P, m, k) and ``b_sl[jj]`` (P, k, n), contiguous, and
+    the per-pair f32 weights."""
+    ii, jj, weights = _device_schedule(num_splits, slice_bits, a_sl.device)
+    return (torch.index_select(a_sl, 0, ii),
+            torch.index_select(b_sl, 0, jj), weights)
+
+
+def gather_pairs_kmajor_plain(a_sl, b_sl, num_splits: int,
+                              slice_bits: int = SLICE_BITS):
+    """Plain version of K3's gather kernel: :func:`gather_pairs`' copies
+    with B's transposed to k-major (P, n, k)."""
+    ii, jj, weights = _device_schedule(num_splits, slice_bits, a_sl.device)
+    return (torch.index_select(a_sl, 0, ii),
+            torch.index_select(b_sl.transpose(1, 2), 0, jj).contiguous(),
+            weights)
+
+
+def gather_pairs_kmajor(a_sl, b_sl, num_splits: int,
+                        slice_bits: int = SLICE_BITS):
+    """K3's staging as its kernel reads it: the pair copies ``a_sl[ii]``
+    (P, m, k) and, k-major, ``b_sl[jj]`` transposed (P, n, k), written
+    by one launch of the gather kernel (its plain version for CPU
+    tensors), and the cached per-pair weights."""
     dev = a_sl.device
-    a_pairs = a_sl[torch.as_tensor(ii, dtype=torch.long, device=dev)]
-    b_pairs = b_sl[torch.as_tensor(jj, dtype=torch.long, device=dev)]
-    w = np.ldexp(np.float32(1.0), (num_splits - 1 - (ii + jj)) * slice_bits)
-    weights = torch.as_tensor(w.astype(np.float32), device=dev)
-    return a_pairs.contiguous(), b_pairs.contiguous(), weights
+    _check_inputs({"a_sl": a_sl, "b_sl": b_sl}, torch.int8, dev)
+    s, m, k = a_sl.shape
+    s2, k2, n = b_sl.shape
+    if s != num_splits or s2 != num_splits or k2 != k:
+        raise ValueError(f"slice stacks {tuple(a_sl.shape)} @ "
+                         f"{tuple(b_sl.shape)} do not match "
+                         f"num_splits={num_splits}")
+    if dev.type == "cpu":
+        return gather_pairs_kmajor_plain(a_sl, b_sl, num_splits, slice_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _launch_gather(_build.load(), _stream(dev), a_sl, b_sl,
+                          num_splits, slice_bits)
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_gather(lib, stream, a_sl, b_sl, num_splits, slice_bits):
+    """The gather kernel on slice stacks already checked."""
+    dev = a_sl.device
+    _, m, k = a_sl.shape
+    n = b_sl.shape[2]
+    ii, jj, wexp = _host_schedule(num_splits, slice_bits)
+    a_pairs = torch.empty((len(ii), m, k), dtype=torch.int8, device=dev)
+    b_pairs = torch.empty((len(ii), n, k), dtype=torch.int8, device=dev)
+    code = lib.gather_pairs_launch(
+        a_sl.data_ptr(), b_sl.data_ptr(), a_pairs.data_ptr(),
+        b_pairs.data_ptr(), m, k, n, ii, jj, wexp, len(ii), dev.index or 0,
+        stream)
+    _raise_on(lib, code, "gather_pairs_kmajor")
+    LAUNCHES["gather_pairs_kmajor"] += 1
+    return a_pairs, b_pairs, _device_schedule(num_splits, slice_bits,
+                                              dev)[2]
 
 
 def split_gemm_v1_plain(a_sl, b_sl, num_splits: int,
@@ -162,15 +242,6 @@ def _check_inputs(tensors, dtype, device):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _schedule_ctypes(num_splits, slice_bits):
-    """The schedule as int32 arrays (kept alive by the caller) and the
-    ctypes pointers the launcher copies from."""
-    ii, jj, wexp = pair_schedule_arrays(num_splits, slice_bits)
-    arrs = [np.ascontiguousarray(x, dtype=np.int32) for x in (ii, jj, wexp)]
-    ptrs = [x.ctypes.data_as(ctypes.POINTER(ctypes.c_int)) for x in arrs]
-    return arrs, ptrs, len(ii)
-
-
 def _raise_on(lib, code: int, what: str):
     if code != 0:
         msg = lib.split_gemm_error_string(code).decode()
@@ -203,12 +274,11 @@ def split_gemm(a_sl, b_sl, num_splits: int, slice_bits: int = SLICE_BITS,
     lib = _build.load()
     hi = torch.empty((m, n), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    _arrays, (ii, jj, wexp), pairs = _schedule_ctypes(num_splits,
-                                                      slice_bits)
+    ii, jj, wexp = _host_schedule(num_splits, slice_bits)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.split_gemm_launch(
         a_sl.data_ptr(), b_sl.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-        m, k, n, bk, ii, jj, wexp, pairs, dev.index or 0, stream)
+        m, k, n, bk, ii, jj, wexp, len(ii), dev.index or 0, stream)
     _raise_on(lib, code, "split_gemm")
     LAUNCHES["split_gemm"] += 1
     return hi, lo
@@ -237,16 +307,16 @@ def split_gemm_fused(a_hi, a_lo, b_hi, b_lo, num_splits: int,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     bk = tile_model.effective_block_k(k, block_k)
+    plan = tile_model.fused_plan(num_splits, -(-k // bk))
     lib = _build.load()
     hi = torch.empty((m, n), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    _arrays, (ii, jj, wexp), pairs = _schedule_ctypes(num_splits,
-                                                      slice_bits)
+    ii, jj, wexp = _host_schedule(num_splits, slice_bits)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.split_gemm_fused_launch(
         a_hi.data_ptr(), a_lo.data_ptr(), b_hi.data_ptr(), b_lo.data_ptr(),
-        hi.data_ptr(), lo.data_ptr(), m, k, n, bk, slice_bits, ii, jj,
-        wexp, pairs, dev.index or 0, stream)
+        hi.data_ptr(), lo.data_ptr(), m, k, n, bk, slice_bits, plan.group,
+        ii, jj, wexp, len(ii), dev.index or 0, stream)
     _raise_on(lib, code, "split_gemm_fused")
     LAUNCHES["split_gemm_fused"] += 1
     return hi, lo
@@ -257,9 +327,9 @@ def split_gemm_v1(a_sl, b_sl, num_splits: int,
     """K3, the legacy kernel: ``(hi, lo)`` f32 of shape (m, n).
 
     Same contract and bits as :func:`split_gemm`; the wrapper stages
-    the pair copies and weights with :func:`gather_pairs` and the
-    kernel reads them, so device memory holds P = s(s+1)/2 pair copies
-    instead of s slice layers.
+    the pair copies and weights with :func:`gather_pairs_kmajor` and
+    :func:`split_gemm_v1_pairs` reads them, so device memory holds
+    P = s(s+1)/2 pair copies instead of s slice layers.
     """
     dev = a_sl.device
     _check_inputs({"a_sl": a_sl, "b_sl": b_sl}, torch.int8, dev)
@@ -274,17 +344,58 @@ def split_gemm_v1(a_sl, b_sl, num_splits: int,
                                    block_k)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    # The gather's outputs need no second check: one validation per call
+    # keeps the host's share of this short call small.
+    lib, stream = _build.load(), _stream(dev)
+    copies = _launch_gather(lib, stream, a_sl, b_sl, num_splits,
+                            slice_bits)
+    return _launch_v1(lib, stream, *copies,
+                      tile_model.effective_block_k(k, block_k))
+
+
+def split_gemm_v1_pairs(a_pairs, b_pairs_t, weights, block_k: int = 128):
+    """K3's kernel alone, on pair copies already gathered.
+
+    Args:
+      a_pairs: (P, m, k) int8 pair copies of A, contiguous.
+      b_pairs_t: (P, n, k) int8 k-major pair copies of B, contiguous.
+      weights: (P,) f32 pair weights.
+    """
+    dev = a_pairs.device
+    _check_inputs({"a_pairs": a_pairs, "b_pairs_t": b_pairs_t},
+                  torch.int8, dev)
+    _check_inputs({"weights": weights}, torch.float32, dev)
+    pairs, m, k = a_pairs.shape
+    p2, n, k2 = b_pairs_t.shape
+    if p2 != pairs or k2 != k or weights.shape != (pairs,):
+        raise ValueError(f"pair copies {tuple(a_pairs.shape)}, "
+                         f"{tuple(b_pairs_t.shape)} and weights "
+                         f"{tuple(weights.shape)} do not match")
     bk = tile_model.effective_block_k(k, block_k)
-    lib = _build.load()
-    a_pairs, b_pairs, weights = gather_pairs(a_sl, b_sl, num_splits,
-                                             slice_bits)
+    if dev.type == "cpu":
+        hi = torch.zeros((m, n), dtype=torch.float32)
+        lo = torch.zeros_like(hi)
+        for p in range(pairs):
+            hi, lo = _fold_k_tiles(hi, lo, a_pairs[p], b_pairs_t[p].T,
+                                   float(weights[p]), bk)
+        return hi, lo
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _launch_v1(_build.load(), _stream(dev), a_pairs, b_pairs_t,
+                      weights, bk)
+
+
+def _launch_v1(lib, stream, a_pairs, b_pairs_t, weights, bk):
+    """K3's kernel on pair copies already checked."""
+    dev = a_pairs.device
+    pairs, m, k = a_pairs.shape
+    n = b_pairs_t.shape[1]
     hi = torch.empty((m, n), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.split_gemm_v1_launch(
-        a_pairs.data_ptr(), b_pairs.data_ptr(), weights.data_ptr(),
-        hi.data_ptr(), lo.data_ptr(), m, k, n, bk, a_pairs.shape[0],
-        dev.index or 0, stream)
+        a_pairs.data_ptr(), b_pairs_t.data_ptr(), weights.data_ptr(),
+        hi.data_ptr(), lo.data_ptr(), m, k, n, bk, pairs, dev.index or 0,
+        stream)
     _raise_on(lib, code, "split_gemm_v1")
     LAUNCHES["split_gemm_v1"] += 1
     return hi, lo
@@ -305,7 +416,7 @@ def ozaki_matmul(a, b, num_splits: int = 6, accumulator: str = "df32",
     from ``tiles`` or explicit ``block_*`` arguments, else from
     :func:`repro_torch.kernels.tile_model.select_tiles`.  Only
     ``block_k`` changes the result; the CUDA kernels run their compiled
-    64x64 CTA tile whatever ``block_m``/``block_n`` say.
+    CTA tile (64x64, K2's 32x32) whatever ``block_m``/``block_n`` say.
     """
     if accumulator not in ("df32", None):
         raise ValueError(

@@ -17,9 +17,15 @@ of (128, 256, 512) not above ``align_up(k, 128)``, and 512 when ``k``
 is unknown, whatever the TPU's rates.  ``tests/test_torch_kernels.py``
 holds this against the reference over a sweep of shapes.
 
-``block_m``/``block_n`` are the CUDA kernels' CTA tile, a Hopper choice
-that does not change the bits.  No TPU rate (clock, VMEM, HBM
+``block_m``/``block_n`` are the CUDA kernels' CTA tile (64x64 for K1
+and K3, 32x32 for K2), a Hopper choice that does not change the bits.  No TPU rate (clock, VMEM, HBM
 bandwidth) is used here; pricing tiles for Hopper is later work.
+
+:func:`fused_plan` is K2's group rule: how many consecutive pairs of the
+schedule share one slicing pass of each k-chunk, given the split count,
+the number of k-tiles and the kernel's register and shared-memory
+budget.  The launcher takes its ``group``, so the CPU tests hold the
+rule and replay the loop nest it drives.
 
 :func:`traffic` counts the device-memory bytes of one emulated GEMM
 for the legacy pair-gathering kernel K3 against K1, at the blocks the
@@ -29,6 +35,7 @@ CUDA kernels run (the 64x64 CTA tile and the reference ``block_k``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from ..core.ozaki import num_pair_gemms, pair_indices
 
@@ -39,8 +46,10 @@ __all__ = [
     "TileDecision",
     "Traffic",
     "align_up",
+    "FusedPlan",
     "block_k_for",
     "effective_block_k",
+    "fused_plan",
     "hbm_bytes_per_step",
     "pair_schedule",
     "select_tiles",
@@ -57,6 +66,35 @@ K_ALIGN = 128
 K_CHUNK = 128
 # The reference's k-tile candidates.
 _BK_CANDIDATES = (128, 256, 512)
+
+#: K2's CTA tile (4 warps of 16x16) and the k-chunk it slices at once.
+FUSED_CTA_M = 32
+FUSED_CTA_N = 32
+FUSED_K_CHUNK = 32
+FUSED_THREADS = 128
+#: int32 partials one K2 thread may hold at once (the kernel is compiled
+#: for capacities up to this and launches the smallest that holds a
+#: plan's partials).
+FUSED_HOLD_MAX = 21
+#: Registers of one held partial: the CTA tile's int32 values per thread.
+FUSED_PARTIAL_REGISTERS = FUSED_CTA_M * FUSED_CTA_N // FUSED_THREADS
+#: Registers a thread may spend on held partials (of 255), leaving the
+#: rest for hi/lo, fragments and addressing.
+FUSED_REGISTER_BUDGET = FUSED_HOLD_MAX * FUSED_PARTIAL_REGISTERS
+#: Shared memory one block may use on an H100 (227 KB).
+SMEM_PER_BLOCK = 232_448
+#: K2's shared memory: two f32 stages of the chunk's hi/lo halves (B's
+#: rows padded by 4 floats) and one int8 slice of A and B per split
+#: (rows padded by 16 bytes).
+FUSED_STAGE_BYTES = 2 * 4 * (2 * FUSED_CTA_M * FUSED_K_CHUNK
+                             + 2 * FUSED_K_CHUNK * (FUSED_CTA_N + 4))
+FUSED_SLICE_BYTES = (FUSED_CTA_M + FUSED_CTA_N) * (FUSED_K_CHUNK + 16)
+#: Split counts the kernels take (their pair schedule holds 136 pairs).
+MAX_KERNEL_SPLITS = 16
+#: K3's ring of cp.async stages, each a 64x64 CTA's 128-byte k-chunk of
+#: A and (k-major) B rows padded by 16 bytes, and its shared memory.
+V1_STAGES = 4
+V1_SMEM_BYTES = V1_STAGES * (CTA_M + CTA_N) * (K_CHUNK + 16)
 
 
 def align_up(x: int, multiple: int) -> int:
@@ -80,6 +118,51 @@ def effective_block_k(k: int, block_k: int) -> int:
     an explicit ``block_k`` meaning the same k-tiling in both packages.
     """
     return align_up(min(block_k, align_up(k, K_ALIGN)), K_ALIGN)
+
+
+def fused_hold(group: int, num_k_tiles: int) -> int:
+    """int32 partials a K2 thread holds for a group of ``group`` pairs.
+
+    The group's first pair folds at the end of every k-tile (all earlier
+    pairs are folded by then); each other pair holds one partial per
+    k-tile until the group ends, when they fold in schedule order.
+    """
+    return 1 + (group - 1) * num_k_tiles
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """K2's launch plan for one (s, k-tile count)."""
+
+    group: int               # consecutive pairs per slicing pass
+    hold: int                # int32 partials a thread holds
+    partial_registers: int   # registers those partials take
+    smem_bytes: int          # dynamic shared memory per CTA
+
+
+@functools.lru_cache(maxsize=None)
+def fused_plan(num_splits: int, num_k_tiles: int) -> FusedPlan:
+    """The group, held partials and shared memory K2 runs with.
+
+    The group is as many consecutive pairs as the held-partial budget
+    allows, at most every pair; 1 (the reference's own order, no
+    partial held) when the k-tiles leave no room.  Shared memory does
+    not depend on the group: a 32-wide k-chunk keeps all ``s`` slices
+    of A and B beside the two f32 stages for every ``s`` the kernels
+    take, so the register budget alone bounds it.
+    """
+    if not 1 <= num_splits <= MAX_KERNEL_SPLITS:
+        raise ValueError(f"num_splits={num_splits} outside [1, "
+                         f"{MAX_KERNEL_SPLITS}]")
+    if num_k_tiles < 1:
+        raise ValueError(f"num_k_tiles={num_k_tiles} < 1")
+    group = max(1, min(num_pair_gemms(num_splits),
+                       1 + (FUSED_HOLD_MAX - 1) // num_k_tiles))
+    hold = fused_hold(group, num_k_tiles)
+    return FusedPlan(
+        group=group, hold=hold,
+        partial_registers=hold * FUSED_PARTIAL_REGISTERS,
+        smem_bytes=FUSED_STAGE_BYTES + num_splits * FUSED_SLICE_BYTES)
 
 
 def pair_schedule(num_splits: int, mode: str = "ordered"):
@@ -149,8 +232,9 @@ def traffic(m: int, k: int, n: int, num_splits: int, bm: int = CTA_M,
     """Count the bytes one emulated (m, k) @ (k, n) GEMM moves.
 
     The reference's accounting over the padded extents, at the blocks
-    the CUDA kernels run: the ``CTA_M`` x ``CTA_N`` output tile and the
-    reference ``block_k`` (``bk=None`` picks it).  Fused, the slices
+    given (by default K1's and K3's ``CTA_M`` x ``CTA_N`` output tile;
+    :func:`select_tiles` passes K2's for ``fused``) and the reference
+    ``block_k`` (``bk=None`` picks it).  Fused, the slices
     never exist in device memory: staging writes the f32 hi/lo halves
     once and the "slice read" is their stream.
     """
@@ -178,9 +262,10 @@ class TileDecision:
     """The pick for one GEMM site; the reference's fields.
 
     On Hopper ``vmem_bytes`` is the shared memory one CTA stages per
-    k-chunk (int8 A and B tiles), ``mxu_cycles_step`` is the number of
-    ``mma.sync`` m16n8k32 instructions one CTA issues per (pair,
-    k-tile) step, and ``hbm_bytes_step`` the bytes one such step
+    k-chunk (int8 A and B tiles; for K2 its whole dynamic shared
+    memory, the f32 stages and the ``s`` slices), ``mxu_cycles_step``
+    is the number of ``mma.sync`` m16n8k32 instructions one CTA issues
+    per (pair, k-tile) step, and ``hbm_bytes_step`` the bytes one such step
     streams (int8 slices, or the f32 hi/lo halves when fused).
     ``kernel_invocations`` and ``traffic_model`` (:func:`traffic`) are
     None for a canonical pick (m or n unknown), as in the reference.
@@ -215,7 +300,8 @@ def select_tiles(m: int | None, k: int | None, n: int | None,
     contract and does not change the pick.
     """
     del dtype
-    bm, bn, bk = CTA_M, CTA_N, block_k_for(k)
+    bm, bn = (FUSED_CTA_M, FUSED_CTA_N) if fused else (CTA_M, CTA_N)
+    bk = block_k_for(k)
     pairs = num_pair_gemms(num_splits)
     invocations = traffic_model = None
     if m is not None and k is not None and n is not None:
@@ -226,7 +312,8 @@ def select_tiles(m: int | None, k: int | None, n: int | None,
     return TileDecision(
         block_m=bm, block_n=bn, block_k=bk, num_splits=num_splits,
         pairs=pairs, schedule="ordered", fused=fused,
-        vmem_bytes=(bm + bn) * K_CHUNK,
+        vmem_bytes=(FUSED_STAGE_BYTES + num_splits * FUSED_SLICE_BYTES
+                    if fused else (bm + bn) * K_CHUNK),
         mxu_cycles_step=(bm // 16) * (bn // 8) * (bk // 32),
         hbm_bytes_step=hbm_bytes_per_step(bm, bn, bk, fused=fused),
         kernel_invocations=invocations, traffic_model=traffic_model)

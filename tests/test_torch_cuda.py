@@ -98,6 +98,84 @@ def test_k2_bitwise_against_plain(m, k, n, dtype):
     assert _bitwise(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("num_splits", [3, 6, 9])
+@pytest.mark.parametrize("m,k,n", [(512, 960, 320), (221, 960, 960),
+                                   (512, 960, 2560), (221, 2560, 960)])
+def test_k2_bitwise_at_the_lm_shapes(m, k, n, num_splits, dtype):
+    # Two and five k-tiles: K2's pair groups hold a partial per k-tile.
+    a, b = _operands(m, k, n, 8, dtype)
+    s = num_splits
+    bk = tile_model.select_tiles(m, k, n, s, fused=True).block_k
+    ah, al, _ = slicing.to_operand_pair(a, axis=1)
+    bh, bl, _ = slicing.to_operand_pair(b, axis=0)
+    before = ops.LAUNCHES["split_gemm_fused"]
+    got = ops.split_gemm_fused(ah, al, bh, bl, s, block_k=bk)
+    assert ops.LAUNCHES["split_gemm_fused"] == before + 1
+    want = ops.split_gemm_fused_plain(ah, al, bh, bl, s, block_k=bk)
+    assert _bitwise(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("num_splits", [1, 2, 14, 16])
+@pytest.mark.parametrize("m,k,n", [(256, 256, 4096), (100, 1100, 60)])
+def test_k2_bitwise_at_few_and_many_splits(m, k, n, num_splits, dtype):
+    # s = 1 and 2 make one short group; 14 and 16 several groups of
+    # the most pairs the held partials allow.
+    a, b = _operands(m, k, n, 9, dtype)
+    s = num_splits
+    bk = tile_model.select_tiles(m, k, n, s, fused=True).block_k
+    ah, al, _ = slicing.to_operand_pair(a, axis=1)
+    bh, bl, _ = slicing.to_operand_pair(b, axis=0)
+    got = ops.split_gemm_fused(ah, al, bh, bl, s, block_k=bk)
+    want = ops.split_gemm_fused_plain(ah, al, bh, bl, s, block_k=bk)
+    assert _bitwise(got, want)
+
+
+@pytest.mark.parametrize("num_splits", [3, 6])
+def test_k2_bitwise_where_slicing_rounds_ties(num_splits):
+    # Dyadic operands with few bits: the slicing recurrence meets exact
+    # halves, where rint's ties-to-even must hold.
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.integers(-4096, 4097, (64, 256)) / 2.0 ** 7)
+    b = torch.from_numpy(rng.integers(-4096, 4097, (256, 96)) / 2.0 ** 13)
+    s = num_splits
+    ah, al, _ = slicing.to_operand_pair(a.cuda(), axis=1)
+    bh, bl, _ = slicing.to_operand_pair(b.cuda(), axis=0)
+    got = ops.split_gemm_fused(ah, al, bh, bl, s, block_k=256)
+    want = ops.split_gemm_fused_plain(ah, al, bh, bl, s, block_k=256)
+    assert _bitwise(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 256, 4096), (37, 130, 51)])
+def test_k3_kernel_alone_on_gathered_copies(m, k, n):
+    a, b = _operands(m, k, n, 10, torch.float64)
+    s = 6
+    bk = tile_model.select_tiles(m, k, n, s).block_k
+    a_sl, _ = slice_matrix(a, s, axis=1)
+    b_sl, _ = slice_matrix(b, s, axis=0)
+    copies = ops.gather_pairs_kmajor(a_sl, b_sl, s)
+    got = ops.split_gemm_v1_pairs(*copies, block_k=bk)
+    assert _bitwise(got, ops.split_gemm_v1(a_sl, b_sl, s, block_k=bk))
+    assert _bitwise(got, ops.split_gemm_plain(a_sl, b_sl, s, block_k=bk))
+
+
+@pytest.mark.parametrize("s,m,k,n", [(6, 256, 256, 4096), (3, 37, 130, 51),
+                                     (9, 1, 129, 1), (4, 70, 96, 80)])
+def test_gather_kernel_equals_plain(s, m, k, n):
+    # Aligned, ragged and tiny slice stacks.
+    rng = np.random.default_rng(12)
+    a_sl = torch.from_numpy(rng.integers(-64, 65, (s, m, k),
+                                         dtype=np.int8)).cuda()
+    b_sl = torch.from_numpy(rng.integers(-64, 65, (s, k, n),
+                                         dtype=np.int8)).cuda()
+    before = ops.LAUNCHES["gather_pairs_kmajor"]
+    got = ops.gather_pairs_kmajor(a_sl, b_sl, s)
+    assert ops.LAUNCHES["gather_pairs_kmajor"] == before + 1
+    want = ops.gather_pairs_kmajor_plain(a_sl, b_sl, s)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 def test_backend_on_card_equals_backend_on_cpu():
     a, b = _operands(96, 200, 80, 5, torch.float64)
     for spec in ("pallas_int8_6", "pallas_int8_6:fused", "fp64_int8_6"):

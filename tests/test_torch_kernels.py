@@ -90,6 +90,194 @@ class TestPlainKernelsAgainstPallas:
         assert torch.equal(hi_1, hi_t) and torch.equal(lo_1, lo_t)
 
 
+def _k2_replay(a_hi, a_lo, b_hi, b_lo, s, bits, bk, group):
+    """K2's loop nest in eager torch: each k-chunk of the f32 halves is
+    sliced once per pair group (the recurrence run once per element,
+    every slice the group needs kept), the group's pairs accumulate
+    int32 partials, the first pair folds at every k-tile's end and the
+    others hold a partial per k-tile until the group ends, then fold
+    in schedule order."""
+    m, k = a_hi.shape
+    n = b_hi.shape[1]
+    kc = tile_model.FUSED_K_CHUNK
+    ii, jj, wexp = ops.pair_schedule_arrays(s, bits)
+    pairs = len(ii)
+    nkt, nck, per_tile = -(-k // bk), -(-k // kc), bk // kc
+    hold = tile_model.fused_hold(group, nkt)
+    radix = float(2 ** bits)
+    hi = torch.zeros((m, n), dtype=torch.float32)
+    lo = torch.zeros_like(hi)
+
+    def fold(hi, lo, part, p):
+        term = part.to(torch.float32) * float(np.ldexp(np.float32(1.0),
+                                                       int(wexp[p])))
+        hi, err = core_port._two_sum(hi, term)
+        return hi, lo + err
+
+    def slices(h, l, count):
+        out = []
+        for _ in range(count):
+            q, h, l = slicing.slice_step(h, l, radix)
+            out.append(q.to(torch.int8))
+        return out
+
+    for p0 in range(0, pairs, group):
+        last = min(pairs, p0 + group)
+        nsa = max(int(ii[p]) + 1 for p in range(p0, last))
+        nsb = max(int(jj[p]) + 1 for p in range(p0, last))
+        acc = [torch.zeros((m, n), dtype=torch.int32) for _ in range(hold)]
+        for q in range(nck):
+            cols = slice(q * kc, (q + 1) * kc)
+            a_q = slices(a_hi[:, cols], a_lo[:, cols], nsa)
+            b_q = slices(b_hi[cols], b_lo[cols], nsb)
+            t_cur = q // per_tile
+            for h in range(hold):
+                g, t = (0, t_cur) if h == 0 else (1 + (h - 1) // nkt,
+                                                  (h - 1) % nkt)
+                if t == t_cur and p0 + g < last:
+                    acc[h] += core_port.int8_matmul_exact(
+                        a_q[ii[p0 + g]], b_q[jj[p0 + g]])
+            if (q + 1) % per_tile == 0 or q + 1 == nck:
+                hi, lo = fold(hi, lo, acc[0], p0)
+                acc[0] = torch.zeros_like(acc[0])
+        for h in range(1, hold):
+            g = 1 + (h - 1) // nkt
+            if p0 + g < last:
+                hi, lo = fold(hi, lo, acc[h], p0 + g)
+    return hi, lo
+
+
+# (m, k, n, block_k): one, two and three k-tiles, ragged k and edges,
+# and k-tiles of several chunks.
+REPLAY_SHAPES = [(5, 100, 6, 128), (7, 200, 5, 128), (6, 300, 9, 128),
+                 (3, 600, 4, 256)]
+
+
+class TestK2LoopNest:
+    @pytest.mark.parametrize("num_splits", [1, 3, 5, 9, 14])
+    @pytest.mark.parametrize("m,k,n,bk", REPLAY_SHAPES)
+    def test_replay_bitwise_for_every_group_size(self, m, k, n, bk,
+                                                 num_splits):
+        a, b = _operands(m, k, n, 23, np.float64)
+        s = num_splits
+        th, tl, _ = slicing.to_operand_pair(torch.from_numpy(a), axis=1)
+        uh, ul, _ = slicing.to_operand_pair(torch.from_numpy(b), axis=0)
+        want = ops.split_gemm_fused_plain(th, tl, uh, ul, s, block_k=bk)
+        hi_r, lo_r = ops_ref.split_gemm_pallas_fused(
+            *(jnp.asarray(x.numpy()) for x in (th, tl, uh, ul)), s,
+            block_k=bk, interpret=True)
+        assert same_bits(hi_r, want[0]) and same_bits(lo_r, want[1])
+        top = tile_model.fused_plan(s, -(-k // bk)).group
+        for group in range(1, top + 1):
+            got = _k2_replay(th, tl, uh, ul, s, 6, bk, group)
+            assert torch.equal(got[0], want[0]), group
+            assert torch.equal(got[1], want[1]), group
+
+    def test_replay_from_f32_sources_at_the_rule_s_group(self):
+        a, b = _operands(33, 257, 40, 24, np.float32)
+        th, tl, _ = slicing.to_operand_pair(torch.from_numpy(a), axis=1)
+        uh, ul, _ = slicing.to_operand_pair(torch.from_numpy(b), axis=0)
+        for s, bk in ((6, 128), (6, 256), (9, 128)):
+            group = tile_model.fused_plan(s, -(-257 // bk)).group
+            got = _k2_replay(th, tl, uh, ul, s, 6, bk, group)
+            want = ops.split_gemm_fused(th, tl, uh, ul, s, block_k=bk)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+class TestFusedPlan:
+    def test_rule_stays_within_its_budgets(self):
+        for s in range(1, tile_model.MAX_KERNEL_SPLITS + 1):
+            pairs = s * (s + 1) // 2
+            for nkt in range(1, 41):
+                plan = tile_model.fused_plan(s, nkt)
+                assert 1 <= plan.group <= pairs
+                assert plan.hold == 1 + (plan.group - 1) * nkt
+                assert plan.hold <= tile_model.FUSED_HOLD_MAX
+                assert (plan.partial_registers
+                        <= tile_model.FUSED_REGISTER_BUDGET)
+                assert plan.smem_bytes <= tile_model.SMEM_PER_BLOCK
+                # The largest group within the budget.
+                if plan.group < pairs:
+                    assert (tile_model.fused_hold(plan.group + 1, nkt)
+                            > tile_model.FUSED_HOLD_MAX)
+
+    def test_examples(self):
+        # MuST (one k-tile): every pair in one group up to s = 6; the
+        # LM's k = 960 and 2560 (two and five k-tiles).
+        assert tile_model.fused_plan(6, 1).group == 21
+        assert tile_model.fused_plan(5, 1).group == 15
+        assert tile_model.fused_plan(9, 1).group == 21
+        assert tile_model.fused_plan(6, 2).group == 11
+        assert tile_model.fused_plan(6, 5).group == 5
+        assert tile_model.fused_plan(6, 40).group == 1
+        assert tile_model.fused_plan(16, 1).smem_bytes == 34_816 + 16 * 3_072
+
+    def test_fused_decision_reports_k2_s_tile(self):
+        d = tile_model.select_tiles(256, 256, 4096, 6, fused=True)
+        assert (d.block_m, d.block_n, d.block_k) == (32, 32, 256)
+        assert d.vmem_bytes == tile_model.fused_plan(6, 1).smem_bytes
+        assert d.traffic_model == tile_model.traffic(
+            256, 256, 4096, 6, 32, 32, 256, fused=True)
+        assert d.kernel_invocations == 8 * 128 * 21
+        plain = tile_model.select_tiles(256, 256, 4096, 6)
+        assert (plain.block_m, plain.block_n) == (64, 64)
+
+    def test_rejects_what_the_kernel_cannot_take(self):
+        with pytest.raises(ValueError):
+            tile_model.fused_plan(17, 1)
+        with pytest.raises(ValueError):
+            tile_model.fused_plan(6, 0)
+
+
+class TestK3Staging:
+    @pytest.mark.parametrize("num_splits", [1, 4, 9])
+    def test_kmajor_copies_are_the_gathered_copies_transposed(
+            self, num_splits):
+        s = num_splits
+        rng = np.random.default_rng(25)
+        a_sl = torch.from_numpy(rng.integers(-64, 65, (s, 7, 19),
+                                             dtype=np.int8))
+        b_sl = torch.from_numpy(rng.integers(-64, 65, (s, 19, 11),
+                                             dtype=np.int8))
+        a_p, b_p, w = ops.gather_pairs(a_sl, b_sl, s)
+        a_k, b_k, w_k = ops.gather_pairs_kmajor(a_sl, b_sl, s)
+        assert torch.equal(a_k, a_p) and torch.equal(w_k, w)
+        assert b_k.shape == (s * (s + 1) // 2, 11, 19)
+        assert b_k.is_contiguous()
+        assert torch.equal(b_k, b_p.transpose(1, 2))
+
+    @pytest.mark.parametrize("num_splits,bits", [(3, 6), (9, 6), (14, 6),
+                                                 (5, 7)])
+    def test_cached_schedule_equals_the_reference_s(self, num_splits, bits):
+        s = num_splits
+        ii, jj, weights = ops._device_schedule(s, bits, torch.device("cpu"))
+        ri, rj, rw = ops_ref._pair_schedule_arrays(s, bits)
+        assert np.array_equal(ii.numpy(), np.asarray(ri))
+        assert np.array_equal(jj.numpy(), np.asarray(rj))
+        want = np.ldexp(np.float32(1.0), np.asarray(rw)).astype(np.float32)
+        assert weights.dtype == torch.float32
+        assert np.array_equal(weights.numpy().view(np.int32),
+                              want.view(np.int32))
+        ti, tj, tw = ops.pair_schedule_arrays(s, bits)
+        assert (list(ops._host_schedule(s, bits)[0]),
+                list(ops._host_schedule(s, bits)[1]),
+                list(ops._host_schedule(s, bits)[2])) == (
+            ti.tolist(), tj.tolist(), tw.tolist())
+        # Built once: every call returns the same objects.
+        assert ops._device_schedule(s, bits, torch.device("cpu"))[2] \
+            is weights
+        assert ops._host_schedule(s, bits) is ops._host_schedule(s, bits)
+
+    def test_kernel_alone_on_gathered_copies_equals_k1(self):
+        a, b = _operands(21, 150, 13, 26, np.float64)
+        t_a, _ = core_port.slice_matrix(torch.from_numpy(a), 5, axis=1)
+        t_b, _ = core_port.slice_matrix(torch.from_numpy(b), 5, axis=0)
+        got = ops.split_gemm_v1_pairs(
+            *ops.gather_pairs_kmajor(t_a, t_b, 5), block_k=128)
+        want = ops.split_gemm_plain(t_a, t_b, 5, block_k=128)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 class TestSlicing:
     @pytest.mark.parametrize("axis", [0, 1])
     @pytest.mark.parametrize("dtype", [np.float32, np.float64])
