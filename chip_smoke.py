@@ -6,13 +6,17 @@ Run from the root of a checkout on a machine with one CUDA card (an
 H100 for the numbers in PERF.md).  The script builds the split-GEMM
 kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
 
-1. prints the card's name and power limit and the kernels' build;
+1. prints the card's name and power limit and the kernels' build
+   (registers, shared memory and spills of every compiled kernel);
 2. holds K1, K2 and K3 bitwise (hi and lo, tolerance 0) against their
    plain PyTorch versions on the card, and K3 against K1, at the listed
    shapes and split counts, K2 from f32 and from f64 sources and also
-   at s = 1, 2, 14, 16 on two of them; and K1, K2 and K3 so at the GEMM
+   at s = 1, 2, 14, 16 on two of them; K1, K2 and K3 so at the GEMM
    shapes the serve phase gives K1 (every projection and MLP (k, n) of
-   SmolLM-360M, m a full and a ragged wave: two and five k-tiles);
+   SmolLM-360M, m a full and a ragged wave: two and five k-tiles); and
+   K1 under every plan ``tile_model.k1_plans`` gives, through both of
+   its entries, at the MuST, LM, ragged and tiny shapes for s = 1, 2,
+   3, 6, 9, 14, 16;
 3. runs the accuracy ladder at 4096^2 in float64 through
    ``pallas_int8_s`` for s = 3..9;
 4. runs the MuST Green's-function contour (n=4096, block=256, 9
@@ -20,7 +24,8 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    with the launch counters zeroed just before and read just after,
    and checks the Table-1 ladder, the Figure-1 peak and the launch
    counts; then profiles one energy point of ``pallas_int8_6`` and of
-   ``pallas_int8_6:fused`` for the device's busy share and K2's share;
+   ``pallas_int8_6:fused`` for the device's busy share and K1's and
+   K2's share;
 5. runs K3's path, the reference's v1/v2 A/B check: K3 (its gather
    kernel, then its split-GEMM kernel) against K1 at the MuST shape for
    s = 3, 6, 9, counters zeroed before and read after, with the traffic
@@ -30,33 +35,49 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    natively (``dgemm``) and through ``pallas_int8_6``: prefill and
    decode tokens/s on the card's clock, K1's launch count against the
    count the site report predicts, paged == dense greedy tokens, one
-   emulated prefill wave profiled for the device's idle share, and the
-   float64 LM's prefill logits ladder for s = 3..9, once as the model
-   computes (softmax and SwiGLU gate in float32, as the reference) and
-   once with those float32 stages raised to float64, where the ladder
-   shows the emulated GEMMs' own error;
-7. times each kernel, its bound, the library call it stands in for and
-   the pair products as ``torch._int_mm`` at the MuST shape (256, 256,
-   4096) for s = 3, 6, 9, the plain versions at s = 6, and K3's kernel
-   alone on gathered copies beside its gather;
-8. prints one JSON line describing every ported kernel, the card line,
-   and last ``{"ok": true, "device": {...}}``.
+   emulated prefill wave profiled for the device's idle share and K1's
+   device time, and the float64 LM's prefill logits ladder for s =
+   3..9, once as the model computes (softmax and SwiGLU gate in
+   float32, as the reference) and once with those float32 stages raised
+   to float64, where the ladder shows the emulated GEMMs' own error;
+7. times K1 at the MuST shapes (256, 256, N), N = 256 and 4096, for
+   s = 3, 6, 9 and at SmolLM-360M's prefill GEMMs (m = 512) for s = 6,
+   and K2 and K3 at (256, 256, 4096) for s = 3, 6, 9: each with its
+   bound, the FP64 ``torch.matmul`` it stands in for, the pair products
+   as ``torch._int_mm``, the profiler's device time, and its plain
+   version at s = 6; K3's kernel alone on gathered copies beside its
+   gather;
+8. prints one JSON line describing every ported kernel (K1 once per
+   timed shape), the card line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Every phase that fails raises, so the script exits non-zero and prints
 no result line.
 
+    python3 chip_smoke.py --k1-plans
+
+holds K1 under every plan bitwise against its plain version at the timed
+shapes and times each plan (the sweep ``tile_model.k1_plan``'s rule and
+cost model come from).
+
+    python3 chip_smoke.py --k1-ab PARENT_DIR CHANGE_DIR [PAIRS]
     python3 chip_smoke.py --fused-ab PARENT_DIR CHANGE_DIR [PAIRS]
 
-compares K2 and the fused MuST contour of two checkouts of the port on
-the card instead (for example ``git archive`` of two commits unpacked
-into directories that ``.gitignore`` lists): pair i runs PARENT then
-CHANGE, pair i+1 CHANGE then PARENT (2 pairs by default), each in a
-process of its own from its checkout's root, and prints every run and
-the medians.  A run times K2 at the MuST shape (256, 256, 4096), s = 6,
-with CUDA events, the ``pallas_int8_6:fused`` contour (n=4096,
-block=256, 9 energies) on the host clock, and one profiled energy
-point (E_f) of it: the device's busy time and K2's.  TF32 is switched off for matmuls and cuDNN at start,
-so every float32 product the script computes is full float32.
+compare two checkouts of the port on the card (for example ``git
+archive`` of two commits unpacked into directories that ``.gitignore``
+lists): pair i runs PARENT then CHANGE, pair i+1 CHANGE then PARENT (2
+pairs by default), each in a process of its own from its checkout's
+root, and print every run and the medians.  A ``--k1-ab`` run times K1
+at the shapes of phase 7 (CUDA events and the profiler's device time),
+the host time per call of K1's wrapper there and of
+``ops.ozaki_matmul`` (slicing included) at the MuST shapes, over many
+calls with no synchronize between them, the ``pallas_int8_6`` contour
+(n=4096, block=256, 9 energies) on the host clock, and K1's device
+time in one emulated SmolLM-360M prefill wave (2 x 256 tokens).  A ``--fused-ab`` run times K2 at (256, 256,
+4096), s = 6, the ``pallas_int8_6:fused`` contour, and one profiled
+energy point (E_f) of it: the device's busy time and K2's.  TF32 is
+switched off for matmuls and cuDNN at start, so every float32 product
+the script computes is full float32.
 """
 
 import json
@@ -79,6 +100,8 @@ FERMI = 0.72
 SPLITS = (3, 6, 9)
 # K2 is also held at the fewest and the most splits it takes.
 K2_EXTRA_SPLITS = (1, 2, 14, 16)
+# K1 is held under every plan at these split counts.
+K1_SPLITS = (1, 2, 3, 6, 9, 14, 16)
 # The float64 LM's logits ladder (max relative error).  With the
 # float32 softmax and gate it falls to float32 rounding and sits there,
 # under LM_FLOOR.  With those stages in float64 it follows the GEMMs:
@@ -117,7 +140,8 @@ def device_ms(fn, name, reps=20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -166,23 +190,37 @@ def phase_card():
     print(f"[build] {info['path']} built={info['built']} "
           f"in {time.perf_counter() - t0:.2f} s")
     # ptxas -v: registers, static shared memory and spills per kernel
-    # (K2 once per compiled capacity of held partials).
+    # (K1 once per compiled plan: warpgroups, tile width, resident; K2
+    # once per compiled capacity of held partials), and any
+    # wgmma serialization ptxas reports.
     name = "?"
     for line in info["log"].splitlines():
         found = re.search(r"entry function '.*?"
                           r"(split_gemm(?:_fused|_v1)?_kernel|"
                           r"gather_pairs_kernel)"
-                          r"(?:ILi(\d+)E)?", line)
+                          r"(?:I((?:L[ib]\d+E)+)E)?", line)
         if found:
-            name = found.group(1) + (f"<{found.group(2)}>"
-                                     if found.group(2) else "")
-        elif "registers" in line or "spill" in line or "error" in line:
+            name = found.group(1) + (
+                "<" + ",".join(re.findall(r"L[ib](\d+)E", found.group(2)))
+                + ">" if found.group(2) else "")
+        elif ("registers" in line or "spill" in line or "error" in line
+              or "wgmma" in line):
             print(f"[build] {name}: {line.split(':', 1)[-1].strip()}")
     from repro_torch.kernels import tile_model
     print("[build] dynamic shared memory: split_gemm_fused_kernel "
           + ", ".join(f"s={s} {tile_model.fused_plan(s, 1).smem_bytes} B"
                       for s in (1, 6, 9, 16))
-          + f"; split_gemm_v1_kernel {tile_model.V1_SMEM_BYTES} B")
+          + f"; split_gemm_v1_kernel {tile_model.V1_SMEM_BYTES} B; "
+          "split_gemm_kernel (K1) "
+          + ", ".join(f"{plan_label(p)} {p.smem_bytes} B" for p in
+                      (tile_model.k1_plan(256, 256, 4096, s)
+                       for s in SPLITS)))
+
+
+def plan_label(plan):
+    """K1 plan as tile/mode, e.g. ``64x64/resident``."""
+    return (f"{plan.block_m}x{plan.block_n}/"
+            f"{'resident' if plan.resident else 'streamed'}")
 
 
 def serve_gemm_shapes(cfg):
@@ -284,6 +322,56 @@ def phase_kernels_vs_plain(errs):
     print(f"[kernels] _pow2_scale card vs CPU at powers of two and "
           f"neighbours: {diff} of {len(vals)} differ")
     return set(kn)
+
+
+def k1_shapes():
+    """K1's shapes on the main paths: the MuST block GEMMs (256, 256, N),
+    SmolLM-360M's prefill GEMMs at a full and a ragged wave, and ragged
+    and tiny ones whose k is not a multiple of 16."""
+    from repro_torch.configs import get_config
+
+    kn = serve_gemm_shapes(get_config("smollm_360m"))
+    return ([(256, 256, n) for n in (256, 512, 2048, 4096)]
+            + [(m, k, n) for m in (512, 221) for k, n in kn]
+            + [(37, 130, 51), (1, 129, 1), (100, 1100, 60)])
+
+
+def phase_k1_plans(errs):
+    """K1 bitwise against its plain version under every plan
+    ``tile_model.k1_plans`` gives, through ``split_gemm`` and
+    ``split_gemm_kmajor``, at ``k1_shapes()`` x ``K1_SPLITS``; the k-major
+    slices equal the axis-0 slices transposed.  Returns the plans held."""
+    from repro_torch.core.ozaki import slice_matrix
+    from repro_torch.kernels import ops, tile_model
+
+    gen = np.random.default_rng(6)
+    held = set()
+    for m, k, n in k1_shapes():
+        a = torch.from_numpy(gen.standard_normal((m, k))).cuda()
+        b = torch.from_numpy(gen.standard_normal((k, n))).cuda()
+        for s in K1_SPLITS:
+            bk = tile_model.select_tiles(m, k, n, s).block_k
+            a_sl, _ = slice_matrix(a, s, axis=1)
+            b_sl, sig = slice_matrix(b, s, axis=0)
+            b_t, sig_t = slice_matrix(b.mT, s, axis=1)
+            if not (b_t.is_contiguous() and torch.equal(
+                    b_t, b_sl.transpose(1, 2)) and bits_equal(sig, sig_t)):
+                fail(f"k-major slices of B differ at {(k, n, s)}")
+            want = ops.split_gemm_plain(a_sl, b_sl, s, block_k=bk)
+            for plan in tile_model.k1_plans(m, k, n, s, bk):
+                case = (m, k, n, s, plan_label(plan))
+                check("split_gemm", ops.split_gemm_kmajor(
+                    a_sl, b_t, s, block_k=bk, plan=plan), want, errs, case)
+                check("split_gemm", ops.split_gemm(
+                    a_sl, b_sl, s, block_k=bk, plan=plan), want, errs, case)
+                held.add((plan.block_m, plan.block_n, plan.resident))
+    torch.cuda.synchronize()
+    print(f"[kernels] K1 bitwise equal to its plain version under every "
+          f"plan ({len(held)} tile/mode pairs) through split_gemm and "
+          f"split_gemm_kmajor, at {len(k1_shapes())} shapes x s in "
+          f"{K1_SPLITS}; k-major slices of B == the axis-0 slices "
+          f"transposed, contiguous, same sigma")
+    return held
 
 
 def check(name, got, want, errs, case):
@@ -395,9 +483,9 @@ def phase_must(n=4096, block=256, n_energies=9):
 
 
 def phase_profile(mode, n=4096, block=256, n_energies=9):
-    """Device busy share of one energy point of ``mode``, and for the
-    fused mode K2's share of the device time and its extrapolation to
-    the contour's ``n_energies`` energies."""
+    """Device busy share of one energy point of ``mode``, and the share
+    of the device time its kernel (K1, or K2 for ``:fused``) takes, with
+    its extrapolation to the contour's ``n_energies`` energies."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.apps import must
@@ -431,14 +519,15 @@ def phase_profile(mode, n=4096, block=256, n_energies=9):
     for e in top:
         print(f"[profile]   {e.key[:70]}: "
               f"{e.self_device_time_total / 1e3:.1f} ms over {e.count} calls")
-    if mode.endswith(":fused"):
-        k2 = [e for e in events if "split_gemm_fused" in e.key]
-        k2_s = sum(e.self_device_time_total for e in k2) / 1e6
-        calls = sum(e.count for e in k2)
-        print(f"[profile] {mode}: K2 {k2_s * 1e3:.1f} ms over {calls} "
-              f"launches, {k2_s / busy:.3f} of the device time, "
-              f"{k2_s / wall:.3f} of the wall; x {n_energies} energies "
-              f"= {k2_s * n_energies:.2f} s of K2 per contour")
+    label, key = (("K2", "split_gemm_fused") if mode.endswith(":fused")
+                  else ("K1", "split_gemm_kernel"))
+    found = [e for e in events if key in e.key]
+    kern_s = sum(e.self_device_time_total for e in found) / 1e6
+    calls = sum(e.count for e in found)
+    print(f"[profile] {mode}: {label} {kern_s * 1e3:.1f} ms over {calls} "
+          f"launches, {kern_s / busy:.3f} of the device time, "
+          f"{kern_s / wall:.3f} of the wall; x {n_energies} energies "
+          f"= {kern_s * n_energies:.2f} s of {label} per contour")
 
 
 def phase_v1_ab(errs, m=256, k=256, n=4096):
@@ -646,7 +735,8 @@ def phase_serve(checked_kn, seed=3, n_requests=8, max_new=16, splits=6,
 
 
 def _profile_wave(eng, policy, rows=2, width=256):
-    """Device busy share of one emulated prefill wave."""
+    """Device busy share of one emulated prefill wave, and K1's device
+    time in it."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import offload
@@ -677,9 +767,13 @@ def _profile_wave(eng, policy, rows=2, width=256):
         print("[serve] no device time in the trace: idle share not "
               "measured")
         return
+    k1 = [e for e in events if "split_gemm_kernel" in e.key]
+    k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
     print(f"[serve] one emulated prefill wave ({rows}x{width} tokens): "
           f"wall {wall:.3f} s (profiled), device busy {busy:.3f} s, idle "
-          f"share {1 - busy / wall:.3f}")
+          f"share {1 - busy / wall:.3f}; K1 {k1_ms:.1f} ms of device time "
+          f"over {sum(e.count for e in k1)} launches "
+          f"({k1_ms / 1e3 / busy:.3f} of the busy time)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
         print(f"[serve]   {e.key[:70]}: "
               f"{e.self_device_time_total / 1e3:.1f} ms over {e.count} calls")
@@ -742,10 +836,76 @@ def phase_lm_ladder(seed=3, tokens_per_row=256, **overrides):
     return ladders
 
 
+def bound(ops_count, nbytes):
+    """Least time on the card: int8 ops at PEAK_INT8_OPS against bytes
+    at PEAK_BYTES, the larger, and which one it is."""
+    t_ops = ops_count / PEAK_INT8_OPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def phase_k1_timings(errs, launches):
+    """K1 at ``k1_timed_shapes()``: event-timed through the k-major entry
+    the main paths call, the profiler's device time, its bound (int8 ops
+    2*m*n*k*P against bytes s*(m*k + k*n) + 8*m*n), the FP64
+    torch.matmul it stands in for, the P pair products as torch._int_mm,
+    and (s = 6) its plain version.  Returns its JSON rows."""
+    from repro_torch.core.ozaki import num_pair_gemms, slice_matrix
+    from repro_torch.kernels import ops, tile_model
+
+    gen = np.random.default_rng(2)
+    saved = dict(ops.LAUNCHES)
+    rows = []
+    for (m, k, n), s in k1_timed_shapes():
+        a = torch.from_numpy(gen.standard_normal((m, k))).cuda()
+        b = torch.from_numpy(gen.standard_normal((k, n))).cuda()
+        pairs = num_pair_gemms(s)
+        bk = tile_model.select_tiles(m, k, n, s).block_k
+        plan = tile_model.k1_plan(m, k, n, s, bk)
+        a_sl, _ = slice_matrix(a, s, axis=1)
+        b_t, _ = slice_matrix(b.mT, s, axis=1)
+        ia = [a_sl[i].contiguous() for i in range(s)]
+        ib = [b_t[j].T.contiguous() for j in range(s)]
+        ii, jj = tile_model.pair_schedule(s)
+
+        def kernel():
+            return ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk)
+
+        ms = timed(kernel, 50)
+        dev_ms = device_ms(kernel, "split_gemm_kernel")
+        library_ms = timed(lambda: a @ b, 20)
+        int_mm_ms = timed(lambda: [torch._int_mm(ia[i], ib[j])
+                                   for i, j in zip(ii, jj)], 10)
+        ops_count = 2 * m * n * k * pairs
+        bound_ms, bound_by = bound(ops_count, s * (m * k + k * n) + 8 * m * n)
+        plain_ms = (timed(lambda: ops.split_gemm_kmajor_plain(
+            a_sl, b_t, s, block_k=bk), 3) if s == 6 else None)
+        print(f"[time] split_gemm (K1) at (m,k,n)=({m},{k},{n}) s={s} "
+              f"{plan_label(plan)}: {ms:.4f} ms (kernel on the device "
+              f"{fmt_ms(dev_ms)}), plain "
+              + (f"{plain_ms:.4f} ms" if plain_ms else "not timed")
+              + f", bound {bound_ms:.4f} ms ({bound_by}), f64 torch.matmul "
+              f"{library_ms:.4f} ms, {pairs} torch._int_mm {int_mm_ms:.4f} "
+              f"ms, {ops_count / ms / 1e9:.1f} int8 TOPS", flush=True)
+        rows.append({
+            "name": "split_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/split_gemm.cu",
+            "replaces": "src/repro/kernels/ops.py:186",
+            "launches": launches["split_gemm"],
+            "max_abs_err": errs["split_gemm"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": [m, k, n, s], "device_ms": dev_ms,
+            "int_mm_ms": int_mm_ms})
+    ops.LAUNCHES.update(saved)
+    return rows
+
+
 def phase_timings(errs, launches, m=256, k=256, n=4096):
-    """Each kernel at the MuST shape for s in SPLITS; the JSON rows are
-    s = 6's.  Bounds: int8 ops 2*m*n*k*P at PEAK_INT8_OPS against the
-    bytes each function must move at PEAK_BYTES."""
+    """K2 and K3 (with its gather) at the MuST shape for s in SPLITS;
+    the JSON rows are s = 6's.  Bounds as ``bound``, over the bytes each
+    function must move."""
     from repro_torch.core.ozaki import num_pair_gemms, slice_matrix
     from repro_torch.kernels import ops, slicing, tile_model
 
@@ -755,12 +915,6 @@ def phase_timings(errs, launches, m=256, k=256, n=4096):
     ah, al, _ = slicing.to_operand_pair(a, axis=1)
     bh, bl, _ = slicing.to_operand_pair(b, axis=0)
     saved = dict(ops.LAUNCHES)
-
-    def bound(ops_count, nbytes):
-        t_ops = ops_count / PEAK_INT8_OPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                     else "bytes")
 
     library_ms = timed(lambda: a @ b, 20)
     rows = []
@@ -777,10 +931,6 @@ def phase_timings(errs, launches, m=256, k=256, n=4096):
         ops_count = 2 * m * n * k * pairs
         layer = m * k + k * n
         specs = [
-            ("split_gemm", "src/repro/kernels/ops.py:186",
-             lambda: ops.split_gemm(a_sl, b_sl, s, block_k=bk),
-             lambda: ops.split_gemm_plain(a_sl, b_sl, s, block_k=bk),
-             s * layer + 8 * m * n),
             ("split_gemm_fused", "src/repro/kernels/ops.py:252",
              lambda: ops.split_gemm_fused(ah, al, bh, bl, s, block_k=bk),
              lambda: ops.split_gemm_fused_plain(ah, al, bh, bl, s,
@@ -850,6 +1000,57 @@ def phase_timings(errs, launches, m=256, k=256, n=4096):
     return rows
 
 
+def k1_timed_shapes():
+    """((m, k, n), s) at which K1 is timed: the MuST block GEMMs at
+    their smallest and largest N for s in SPLITS, and the LM's prefill
+    GEMMs (m a full 2 x 256 wave, every (k, n) of SmolLM-360M) at s=6."""
+    from repro_torch.configs import get_config
+
+    kn = serve_gemm_shapes(get_config("smollm_360m"))
+    return ([((256, 256, nn), s) for nn in (256, 4096) for s in SPLITS]
+            + [((512, k, n), 6) for k, n in kn])
+
+
+def k1_plans_sweep():
+    """--k1-plans: K1 under every plan ``tile_model.k1_plans`` gives at
+    the timed shapes, each held bitwise against its plain version and
+    timed (CUDA events, and the profiler's device time)."""
+    from repro_torch.core.ozaki import slice_matrix
+    from repro_torch.kernels import ops, tile_model
+
+    phase_card()
+    gen = np.random.default_rng(5)
+    failed = []
+    for (m, k, n), s in k1_timed_shapes():
+        a = torch.from_numpy(gen.standard_normal((m, k))).cuda()
+        b = torch.from_numpy(gen.standard_normal((k, n))).cuda()
+        a_sl, _ = slice_matrix(a, s, axis=1)
+        b_t, _ = slice_matrix(b.mT, s, axis=1)
+        if not b_t.is_contiguous():
+            fail(f"k-major slices of B not contiguous at {(k, n, s)}")
+        bk = tile_model.select_tiles(m, k, n, s).block_k
+        want = ops.split_gemm_kmajor_plain(a_sl, b_t, s, block_k=bk)
+        rule = tile_model.k1_plan(m, k, n, s, bk)
+        for plan in tile_model.k1_plans(m, k, n, s, bk):
+            def run(plan=plan):
+                return ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk,
+                                             plan=plan)
+            try:
+                check("split_gemm", run(), want, {}, (m, k, n, s))
+            except SystemExit as exc:
+                failed.append(f"{plan_label(plan)}: {exc}")
+                print(f"[k1-plans] {failed[-1]}", flush=True)
+                continue
+            ms = timed(run, 30)
+            dev = device_ms(run, "split_gemm_kernel")
+            print(f"[k1-plans] ({m},{k},{n}) s={s} {plan_label(plan)}"
+                  f"{' (rule)' if plan == rule else ''}: {ms:.4f} ms, "
+                  f"device {fmt_ms(dev)}, {plan.ctas} CTAs", flush=True)
+    if failed:
+        fail(f"{len(failed)} K1 plans differ from the plain version")
+    print("[k1-plans] every plan bitwise equal to the plain version")
+
+
 # One --fused-ab run, in its checkout; uses only what the parent and
 # the change both offer (the MuST app, K2's wrapper and its preamble).
 _FUSED_AB_RUN = """
@@ -909,30 +1110,130 @@ print(f"[fused-ab] k2_ms={k2_ms:.4f} contour_s={contour_s:.2f} "
 """
 
 
-def fused_ab(parent, change, pairs=2):
-    """The --fused-ab comparison (module docstring)."""
+# One --k1-ab run, in its checkout; uses only what the parent and the
+# change both offer (K1's wrapper, the MuST app, the serve engine and
+# this script's timed and _smollm).
+_K1_AB_RUN = """
+import sys, time
+import numpy as np, torch
+sys.path[:0] = ["src", "."]
+from torch.profiler import ProfilerActivity, profile
+import chip_smoke as cs
+from repro_torch.apps import must
+from repro_torch.core import PrecisionPolicy, offload
+from repro_torch.core.ozaki import slice_matrix
+from repro_torch.kernels import ops, tile_model
+from repro_torch.serve import Engine, Request
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def k1_profile(fn):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if "split_gemm_kernel" in e.key]
+    return (sum(e.self_device_time_total for e in found) / 1e3,
+            sum(e.count for e in found))
+
+
+def host_us(fn, calls):
+    # Host microseconds per call over `calls` calls with no synchronize
+    # between them (the card runs behind).
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+out = []
+gen = np.random.default_rng(2)
+shapes = ([((256, 256, nn), s) for nn in (256, 4096) for s in (3, 6, 9)]
+          + [((512, k, n), 6) for k, n in ((960, 960), (960, 320),
+                                           (960, 2560), (2560, 960))])
+for (m, k, n), s in shapes:
+    a = torch.from_numpy(gen.standard_normal((m, k))).cuda()
+    b = torch.from_numpy(gen.standard_normal((k, n))).cuda()
+    bk = tile_model.select_tiles(m, k, n, s).block_k
+    a_sl, _ = slice_matrix(a, s, axis=1)
+    if hasattr(ops, "split_gemm_kmajor"):
+        b_t, _ = slice_matrix(b.mT, s, axis=1)
+        run = lambda: ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk)
+    else:
+        b_sl, _ = slice_matrix(b, s, axis=0)
+        run = lambda: ops.split_gemm(a_sl, b_sl, s, block_k=bk)
+    ms = cs.timed(run, 30)
+    dev, count = k1_profile(lambda: [run() for _ in range(20)])
+    tag = f"k1_{m}_{k}_{n}_s{s}"
+    out.append(f"{tag}_ms={ms:.4f} {tag}_device_ms={dev / count:.4f} "
+               f"{tag}_host_us={host_us(run, 200):.2f}")
+    if m == 256:   # the MuST GEMM, slicing included
+        gemm = lambda: ops.ozaki_matmul(a, b, s)
+        out.append(f"ozaki_{m}_{k}_{n}_s{s}_host_us="
+                   f"{host_us(gemm, 100):.2f}")
+
+cfg = must.MustConfig(n=4096, block=256, n_energies=9)
+system = must.build_system(cfg)
+t0 = time.perf_counter()
+must.run_contour(cfg, "pallas_int8_6", system)
+torch.cuda.synchronize()
+out.append(f"contour_s={time.perf_counter() - t0:.2f}")
+
+model = cs._smollm("float32", 3)
+policy = PrecisionPolicy(backend="pallas_int8", default_splits=6)
+eng = Engine(model, model.params, policy=policy, kv_layout="paged",
+             batch_slots=4, max_len=1024, block_size=16, chunk_tokens=256,
+             chunk_token_budget=512)
+eng.run([Request(prompt=list(range(1, 300)), max_new_tokens=2)])
+rows, width = 2, 256
+table = torch.as_tensor(np.tile(eng.kv._table[:1], (rows, 1)),
+                        device="cuda")
+args = (model.params, eng.cache["k"], eng.cache["v"], table,
+        torch.ones((rows, width), dtype=torch.int32, device="cuda"),
+        torch.zeros(rows, dtype=torch.int32, device="cuda"),
+        torch.full((rows,), width, dtype=torch.int32, device="cuda"))
+wave = offload(model.prefill_chunk_paged, policy)
+with torch.no_grad():
+    wave(*args)
+    torch.cuda.synchronize()
+    k1_ms, count = k1_profile(lambda: wave(*args))
+out.append(f"wave_k1_ms={k1_ms:.2f} wave_k1_launches={count}")
+print("[k1-ab] " + " ".join(out))
+"""
+
+
+def ab(script, tag, parent, change, pairs=2):
+    """Alternate ``script`` in two checkouts on this card: pair i runs
+    PARENT then CHANGE, pair i + 1 CHANGE then PARENT, each in a process
+    of its own from its checkout's root; print every run's
+    ``[tag] key=value ...`` line and each key's median per checkout."""
     import statistics
 
     if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; --fused-ab runs "
-                         "only on the card")
+        raise SystemExit(f"chip_smoke: no CUDA device; --{tag} runs only "
+                         "on the card")
     readings = {}   # (checkout, key) -> [value]
     for i in range(int(pairs)):
         order = [("parent", parent), ("change", change)]
         for name, root in (order if i % 2 == 0 else order[::-1]):
-            proc = subprocess.run([sys.executable, "-c", _FUSED_AB_RUN],
+            proc = subprocess.run([sys.executable, "-c", script],
                                   cwd=root, capture_output=True, text=True,
-                                  timeout=600)
-            found = re.search(r"\[fused-ab\] (.*)", proc.stdout)
+                                  timeout=900)
+            found = re.search(rf"\[{tag}\] (.*)", proc.stdout)
             if proc.returncode != 0 or not found:
-                fail(f"--fused-ab: {name} run {i} failed:\n"
+                fail(f"--{tag}: {name} run {i} failed:\n"
                      f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
-            print(f"[fused-ab] pair {i} {name}: {found.group(1)}",
-                  flush=True)
+            print(f"[{tag}] pair {i} {name}: {found.group(1)}", flush=True)
             for key, val in re.findall(r"(\w+)=([\d.]+)", found.group(1)):
                 readings.setdefault((name, key), []).append(float(val))
-    for (name, key), vals in sorted(readings.items()):
-        print(f"[fused-ab] median {name} {key}: "
+    for (name, key), vals in sorted(readings.items(),
+                                    key=lambda kv: (kv[0][1], kv[0][0])):
+        print(f"[{tag}] median {name} {key}: "
               f"{statistics.median(vals):.4f} over {vals}")
 
 
@@ -946,6 +1247,7 @@ def main():
     phase_card()
     errs = {}
     checked_kn = phase_kernels_vs_plain(errs)
+    phase_k1_plans(errs)
     phase_ladder()
     launches = phase_must()
     phase_profile("pallas_int8_6")
@@ -961,7 +1263,7 @@ def main():
              for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
           f"v1 A/B {v1_launches}")
-    rows = phase_timings(errs, total)
+    rows = phase_k1_timings(errs, total) + phase_timings(errs, total)
     print(json.dumps({"kernels": rows}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -971,6 +1273,13 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fused-ab"]:
-        fused_ab(*sys.argv[2:])
+        ab(_FUSED_AB_RUN, "fused-ab", *sys.argv[2:])
+    elif sys.argv[1:2] == ["--k1-ab"]:
+        ab(_K1_AB_RUN, "k1-ab", *sys.argv[2:])
+    elif sys.argv[1:2] == ["--k1-plans"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device; --k1-plans runs "
+                             "only on the card")
+        k1_plans_sweep()
     else:
         main()

@@ -83,9 +83,23 @@ def _compile(out: pathlib.Path) -> str:
     return proc.stderr + proc.stdout
 
 
+#: Pairs the kernels' schedule holds (``MAX_PAIRS``: s <= 16).
+MAX_PAIRS = 136
+
+
+class K1Args(ctypes.Structure):
+    """K1's launch arguments after the pointers (``K1Args`` in
+    ``csrc/split_gemm.cu``), built once per launch shape and plan."""
+
+    _fields_ = [(name, _I) for name in (
+        "m", "k", "n", "block_k", "num_pairs", "block_m", "block_n",
+        "resident")] + [(name, _I * MAX_PAIRS)
+                        for name in ("ii", "jj", "wexp")]
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.split_gemm_launch.argtypes = [
-        _P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _IP, _I, _I, _P]
+        _P, _P, _P, _P, ctypes.POINTER(K1Args), _I, _P]
     lib.split_gemm_launch.restype = _I
     lib.split_gemm_fused_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _IP, _IP,

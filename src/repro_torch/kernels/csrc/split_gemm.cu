@@ -28,8 +28,11 @@
 // repro_torch/kernels/ops.py binds them with ctypes and raises on a
 // non-zero code.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -93,209 +96,7 @@ __device__ __forceinline__ uint32_t pack4(int q0, int q1, int q2, int q3) {
          ((uint32_t)(q2 & 0xff) << 16) | ((uint32_t)(q3 & 0xff) << 24);
 }
 
-// ---- Staging one k-chunk of A (CTA_M x KC) into As[m][k] ------------
-
-// Pre-sliced int8 A. vec: k % 16 == 0, so 16-byte rows never straddle k.
-__device__ __forceinline__ void stage_a_int8(int8_t (*As)[LDS],
-                                             const int8_t* __restrict__ A,
-                                             int m0, int kc, int m, int k,
-                                             bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-#pragma unroll
-    for (int i = 0; i < (CTA_M * KC / 16) / THREADS; ++i) {
-      const int v = tid + i * THREADS;
-      const int row = v / (KC / 16), col = (v % (KC / 16)) * 16;
-      const int gm = m0 + row, gk = kc + col;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (gm < m && gk < k)
-        val = *reinterpret_cast<const int4*>(A + (size_t)gm * k + gk);
-      *reinterpret_cast<int4*>(&As[row][col]) = val;
-    }
-  } else {
-    for (int i = 0; i < (CTA_M * KC) / THREADS; ++i) {
-      const int v = tid + i * THREADS;
-      const int row = v / KC, col = v % KC;
-      const int gm = m0 + row, gk = kc + col;
-      As[row][col] = (gm < m && gk < k) ? A[(size_t)gm * k + gk] : 0;
-    }
-  }
-}
-
-// ---- Staging one k-chunk of B (KC x CTA_N) transposed into Bs[n][k] --
-
-// vec: n % 16 == 0 (16-byte loads along n).
-__device__ __forceinline__ void stage_b_int8(int8_t (*Bs)[LDS],
-                                             const int8_t* __restrict__ B,
-                                             int n0, int kc, int k, int n,
-                                             bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-#pragma unroll
-    for (int i = 0; i < (KC * CTA_N / 16) / THREADS; ++i) {
-      const int v = tid + i * THREADS;
-      const int kr = v / (CTA_N / 16), col = (v % (CTA_N / 16)) * 16;
-      const int gk = kc + kr, gn = n0 + col;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (gk < k && gn < n)
-        val = *reinterpret_cast<const int4*>(B + (size_t)gk * n + gn);
-      const int8_t* bytes = reinterpret_cast<const int8_t*>(&val);
-#pragma unroll
-      for (int j = 0; j < 16; ++j) Bs[col + j][kr] = bytes[j];
-    }
-  } else {
-    for (int i = 0; i < (KC * CTA_N) / THREADS; ++i) {
-      const int v = tid + i * THREADS;
-      const int kr = v / CTA_N, col = v % CTA_N;
-      const int gk = kc + kr, gn = n0 + col;
-      Bs[col][kr] = (gk < k && gn < n) ? B[(size_t)gk * n + gn] : 0;
-    }
-  }
-}
-
-// ---- The tensor-core product of one staged chunk ---------------------
-
-// One warp: its 32x32 sub-tile, KC deep, as 2x4 mma.sync m16n8k32
-// (A row-major from As[m][k], B "col" = k-contiguous from Bs[n][k]).
-__device__ __forceinline__ void mma_chunk(int8_t (*As)[LDS],
-                                          int8_t (*Bs)[LDS],
-                                          int wm, int wn, int g, int t,
-                                          int (&acc)[2][4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KC; kk += 32) {
-    uint32_t a[2][4];
-    uint32_t b[4][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = wm + mi * 16 + g;
-      a[mi][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + t * 4]);
-      a[mi][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + t * 4]);
-      a[mi][2] =
-          *reinterpret_cast<const uint32_t*>(&As[r][kk + 16 + t * 4]);
-      a[mi][3] =
-          *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 16 + t * 4]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int c = wn + ni * 8 + g;
-      b[ni][0] = *reinterpret_cast<const uint32_t*>(&Bs[c][kk + t * 4]);
-      b[ni][1] =
-          *reinterpret_cast<const uint32_t*>(&Bs[c][kk + 16 + t * 4]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        asm volatile(
-            "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-            "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-            : "+r"(acc[mi][ni][0]), "+r"(acc[mi][ni][1]),
-              "+r"(acc[mi][ni][2]), "+r"(acc[mi][ni][3])
-            : "r"(a[mi][0]), "r"(a[mi][1]), "r"(a[mi][2]), "r"(a[mi][3]),
-              "r"(b[ni][0]), "r"(b[ni][1]));
-      }
-    }
-  }
-}
-
-// Shared body of all kernels.  Stage(As, Bs, p, kc) fills one chunk
-// of pair p; Weight(p) is pair p's exact power-of-two weight.
-template <typename Stage, typename Weight>
-__device__ __forceinline__ void split_gemm_body(int num_pairs,
-                                                float* __restrict__ hi_out,
-                                                float* __restrict__ lo_out,
-                                                int m, int k, int n,
-                                                int block_k, Stage stage,
-                                                Weight weight) {
-  __shared__ __align__(16) int8_t As[CTA_M][LDS];
-  __shared__ __align__(16) int8_t Bs[CTA_N][LDS];
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * CTA_M, n0 = blockIdx.x * CTA_N;
-
-  float hi[2][4][4], lo[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) hi[mi][ni][c] = lo[mi][ni][c] = 0.0f;
-
-  for (int p = 0; p < num_pairs; ++p) {
-    const float w = weight(p);
-    for (int k0 = 0; k0 < k; k0 += block_k) {
-      int acc[2][4][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0;
-      const int k1 = min(k, k0 + block_k);
-      for (int kc = k0; kc < k1; kc += KC) {
-        __syncthreads();  // the previous chunk has been consumed
-        stage(As, Bs, p, kc);
-        __syncthreads();
-        mma_chunk(As, Bs, wm, wn, g, t, acc);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            fold(hi[mi][ni][c], lo[mi][ni][c], acc[mi][ni][c], w);
-    }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int row = m0 + wm + mi * 16 + g + (c >= 2 ? 8 : 0);
-        const int col = n0 + wn + ni * 8 + 2 * t + (c & 1);
-        if (row < m && col < n) {
-          hi_out[(size_t)row * n + col] = hi[mi][ni][c];
-          lo_out[(size_t)row * n + col] = lo[mi][ni][c];
-        }
-      }
-}
-
-// K1 — replaces src/repro/kernels/ops.py::split_gemm_pallas (body
-// _split_gemm_kernel_v2, helpers _accumulate, _pow2_f32).
-//
-// Bound on an H100 SXM: int8 ops 2*m*n*k*P (P = s(s+1)/2) at 1,979 TOPS
-// dense, against bytes s*(m*k + k*n) + 8*m*n at 3.35 TB/s; at the MuST
-// shape (m, k, n) = (256, 256, 4096), s = 6 the ops bound is the larger.
-// What this simple design leaves on the table: legacy mma.sync instead
-// of wgmma, synchronous global->shared staging with no cp.async/TMA
-// pipeline, a byte-wise transpose of B into shared memory, and each
-// CTA re-reading the slice layers once per pair (P times instead of s).
-__global__ void __launch_bounds__(THREADS)
-split_gemm_kernel(const int8_t* __restrict__ a_sl,
-                  const int8_t* __restrict__ b_sl,
-                  float* __restrict__ hi_out, float* __restrict__ lo_out,
-                  int m, int k, int n, int block_k,
-                  const __grid_constant__ PairSchedule sched) {
-  const size_t a_layer = (size_t)m * k, b_layer = (size_t)k * n;
-  const bool vec_a = (k % 16) == 0, vec_b = (n % 16) == 0;
-  const int m0 = blockIdx.y * CTA_M, n0 = blockIdx.x * CTA_N;
-  split_gemm_body(sched.num_pairs, hi_out, lo_out, m, k, n, block_k,
-                  [&](int8_t (*As)[LDS], int8_t (*Bs)[LDS], int p,
-                      int kc) {
-                    stage_a_int8(As, a_sl + sched.ii[p] * a_layer, m0, kc,
-                                 m, k, vec_a);
-                    stage_b_int8(Bs, b_sl + sched.jj[p] * b_layer, n0, kc,
-                                 k, n, vec_b);
-                  },
-                  [&](int p) { return pow2f(sched.wexp[p]); });
-}
-
-// ---- PTX building blocks of K2 and K3 --------------------------------
+// ---- PTX building blocks --------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -365,6 +166,437 @@ __device__ __forceinline__ void load_b_frag(uint32_t (&b)[4],
                                             int lane) {
   const int row = (lane & 7) + (lane >> 4) * 8;
   ldmatrix_x4(b, base + row * lds + ((lane >> 3) & 1) * 16);
+}
+
+// ---- K1 ----------------------------------------------------------------
+//
+// K1 — replaces src/repro/kernels/ops.py::split_gemm_pallas (body
+// _split_gemm_kernel_v2, helpers _accumulate, _pow2_f32).
+//
+// Inputs: a_sl (s, m, k) and, k-major, b_sl_t (s, n, k) int8 slice
+// stacks (ozaki_matmul slices B k-major directly: no transpose pass).
+//
+// Bound on an H100 SXM: int8 ops 2*m*n*k*P (P = s(s+1)/2) at 1,979 TOPS
+// dense, against bytes s*(m*k + k*n) + 8*m*n at 3.35 TB/s; the ops are
+// the larger at every shape the main paths give it.  What held K1's
+// first, simple design far above that bound: mma.sync fed by synchronous
+// staging with a byte-wise transpose of B, every CTA re-reading the slice
+// layers once per pair (P times, not s), and one serial chain of
+// P*chunks steps per CTA whatever the grid.
+//
+// Design.  A CTA of WM warpgroups owns a (64*WM) x BN output tile; each
+// warpgroup owns 64 rows and runs wgmma m64nBNk32 (s8, both operands
+// K-major in shared memory), and hi/lo stay in registers (ldmatrix-fed
+// mma.sync on the same bytes was no faster anywhere and 1.4x slower at
+// the MuST shape, PERF.md).  Operands reach shared memory by TMA (one
+// thread issues a 128-byte-wide box per operand, completion counted on
+// an mbarrier) in wgmma's 128-byte-swizzled K-major layout; rows whose k
+// is not a multiple of 16 (TMA needs 16-byte strides) are written byte
+// by byte into the same layout.  Two partial buffers alternate, so the
+// MMAs of one (pair, k-tile) run while the previous one folds: the fold
+// stays pair-major, then k-tile, then TwoSum.  Two modes, picked per
+// launch by tile_model.k1_plan:
+//
+// * resident (one k-tile, every MuST GEMM): the CTA loads its rows of
+//   all s slice layers once, one mbarrier per layer, and runs the pairs
+//   in schedule order from shared memory, waiting for layers 0..d
+//   when the first pair that reads layer d comes.  Each CTA moves s
+//   layers, not P: s*(BM+BN)*k bytes (196,608 at 64x64, k = 256, s = 6;
+//   s = 8, 9 take the 64x32 tile or stream).
+// * streamed (several k-tiles, the LM's GEMMs): the k-tiles of the pairs
+//   in fold order, each as 128-byte chunks through a ring released by
+//   an mbarrier once every warp's MMAs on a stage are done (k1_stages
+//   deep, so that three single-warpgroup CTAs share an SM).  A CTA reads
+//   P*(BM+BN)*k bytes: at (512, 960, 2560), s = 6, 64x64 tiles, 320 x
+//   21 x 128 x 960 = 826 MB of L2 per launch (the 64x32 tile 1.24 GB,
+//   128x64 619 MB, but on fewer CTAs than SMs).
+//
+// What bounds it now (PERF.md): at the MuST shape the resident CTAs'
+// per-pair chain (eight dependent wgmmas and a fold, one CTA per SM);
+// on the LM's large GEMMs the L2 reads (~5 TB/s reached), on its small
+// grids one CTA's chain of chunks (~0.6 us each).
+//
+// One k-tile's int32 partial is exact, so the order of the MMAs inside
+// it is free; only the folds are ordered.
+constexpr int K1_KC = 128;     // k-bytes of one swizzled block / chunk
+constexpr int K1_KSTEP = 32;   // k-bytes per MMA step
+constexpr int K1_MAX_LAYERS = 16;
+
+// Streamed ring depth per tile: as many 128-byte chunks as leave room
+// for three CTAs per SM (64 x 32: 6, 64 x 64: 4), and 8 for 128 x 64,
+// which runs one CTA per SM.
+__host__ __device__ constexpr int k1_stages(int bm, int bn) {
+  return bm + bn == 96 ? 6 : bm + bn == 128 ? 4 : 8;
+}
+
+// Shared-memory layout of an operand block of R rows: k-blocks of R
+// rows x 128 bytes, the 16-byte chunk c of row r stored at chunk
+// c ^ (r % 8) of its row (TMA's and wgmma's 128-byte swizzle; the block
+// starts 1024-byte aligned, since the swizzle reads address bits 7-9 as
+// the row within eight).
+__device__ __forceinline__ int k1_at(int R, int row, int kb) {
+  return ((kb >> 7) * R + row) * 128 + ((((kb >> 4) & 7) ^ (row & 7)) << 4) +
+         (kb & 15);
+}
+
+// Rows [r0, r0 + R) x k-bytes [kc, kc + kb_len) of a row-major (rows,
+// k) int8 matrix into that layout byte by byte, zero outside (rows,
+// k): the path for k % 16 != 0, where TMA cannot address the rows.
+template <int R, int NT>
+__device__ __forceinline__ void k1_bytes(int8_t* dst,
+                                         const int8_t* __restrict__ src,
+                                         int r0, int rows, int kc,
+                                         int kb_len, int k) {
+  for (int idx = threadIdx.x; idx < R * kb_len; idx += NT) {
+    const int row = idx / kb_len, kb = idx % kb_len;
+    const int gr = r0 + row, gk = kc + kb;
+    dst[k1_at(R, row, kb)] =
+        (gr < rows && gk < k) ? src[(size_t)gr * k + gk] : 0;
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// Arrive once and expect `bytes` of asynchronous copies on `bar`.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// TMA: the box at (c0 = k-byte, c1 = row, c2 = layer) of a 3-D (k, rows,
+// layers) tensor map into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Generic-proxy writes to shared memory (the byte path) ordered before
+// the async proxy's wgmma reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator written by an
+// asynchronous wgmma above the wait that completes it.
+template <int N>
+__device__ __forceinline__ void pin(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// 128-byte-swizzle K-major wgmma descriptor: p is the operand's first
+// row, plus the k step's byte offset (0, 32, 64, 96) inside its
+// 128-byte block; 8-row groups lie SBO = 1024 bytes apart (LBO is not
+// used by swizzled K-major layouts).
+__device__ __forceinline__ uint64_t k1_desc(const int8_t* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma m64n64k32, s8 x s8 -> s32, both operands K-major in shared
+// memory; d (the warpgroup's accumulator fragment) is overwritten when
+// scale_d == 0 and accumulated into otherwise.
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// wgmma m64n32k32, s8 x s8 -> s32, both operands K-major in shared
+// memory; d (the warpgroup's accumulator fragment) is overwritten when
+// scale_d == 0 and accumulated into otherwise.
+__device__ __forceinline__ void wgmma_n32(int (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// One 32-byte k step (step st of the operands' k range) of a
+// warpgroup's 64 x BN partial: as is the A block (ra rows) at the
+// warpgroup's first row, bs the B block (rb rows); `first` starts the
+// partial.
+template <int BN>
+__device__ __forceinline__ void k1_mma(int (&acc)[BN / 2], const int8_t* as,
+                                       int ra, const int8_t* bs, int rb,
+                                       int st, bool first) {
+  const int off = (st >> 2) * 128, kb = (st & 3) * 32;
+  const uint64_t da = k1_desc(as + off * ra + kb);
+  const uint64_t db = k1_desc(bs + off * rb + kb);
+  if constexpr (BN == 64)
+    wgmma_n64(acc, da, db, first ? 0 : 1);
+  else
+    wgmma_n32(acc, da, db, first ? 0 : 1);
+}
+
+template <int N>
+__device__ __forceinline__ void fold_all(float (&hi)[N], float (&lo)[N],
+                                         int (&acc)[N], float w) {
+  pin(acc);
+#pragma unroll
+  for (int i = 0; i < N; ++i) fold(hi[i], lo[i], acc[i], w);
+}
+
+// Streamed single-warpgroup tiles are held to 170 registers, so that
+// three CTAs share an SM.
+template <int WM, int BN, bool RESIDENT>
+__global__ void __launch_bounds__(128 * WM, RESIDENT || WM > 1 ? 1 : 3)
+split_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b,
+                  const int8_t* __restrict__ a_sl,
+                  const int8_t* __restrict__ b_sl_t,
+                  float* __restrict__ hi_out, float* __restrict__ lo_out,
+                  int m, int k, int n, int block_k, int num_layers,
+                  int use_tma, const __grid_constant__ PairSchedule sched) {
+  constexpr int BM = 64 * WM, NT = 128 * WM, NA = BN / 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ uint64_t bars[2 * K1_MAX_LAYERS];
+  // The swizzle atoms need 1024-byte alignment; the launcher adds the
+  // slack.
+  int8_t* sm = reinterpret_cast<int8_t*>(smem) +
+               ((1024 - (smem_u32(smem) & 1023)) & 1023);
+
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int wm0 = (threadIdx.x >> 7) * 64;
+  const size_t a_layer = (size_t)m * k, b_layer = (size_t)n * k;
+  const bool tma = use_tma != 0;
+  const bool leader = threadIdx.x == 0;
+  const int num_pairs = sched.num_pairs;
+
+  // Resident: one "full" barrier per layer.  Streamed: per stage a
+  // "full" barrier (the leader's TMA, or every thread's byte stores)
+  // and an "empty" one (every warp done with the stage).
+  if (leader) {
+    for (int i = 0; i < K1_MAX_LAYERS; ++i) {
+      mbar_init(&bars[i], RESIDENT || tma ? 1 : NT);
+      mbar_init(&bars[K1_MAX_LAYERS + i], NT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float hi[NA], lo[NA];
+  int acc0[NA], acc1[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    hi[i] = lo[i] = 0.0f;
+    acc0[i] = acc1[i] = 0;
+  }
+
+  if constexpr (RESIDENT) {
+    const int kp = (k + K1_KC - 1) / K1_KC * K1_KC;
+    const int layer = (BM + BN) * kp;
+    if (tma) {
+      if (leader) {
+        for (int t = 0; t < num_layers; ++t) {
+          int8_t* dst = sm + t * layer;
+          mbar_expect(&bars[t], layer);
+          for (int kc = 0; kc < kp; kc += K1_KC) {
+            tma_load(dst + kc * BM, &map_a, &bars[t], kc, m0, t);
+            tma_load(dst + BM * kp + kc * BN, &map_b, &bars[t], kc, n0, t);
+          }
+        }
+      }
+    } else {
+      for (int t = 0; t < num_layers; ++t) {
+        k1_bytes<BM, NT>(sm + t * layer, a_sl + t * a_layer, m0, m, 0, kp,
+                         k);
+        k1_bytes<BN, NT>(sm + t * layer + BM * kp, b_sl_t + t * b_layer,
+                         n0, n, 0, kp, k);
+      }
+      fence_proxy_async();
+      __syncthreads();
+    }
+    const int steps = kp / K1_KSTEP;
+    int ready = -1;
+#pragma unroll 1
+    for (int p = 0; p < num_pairs; ++p) {
+      const int i = sched.ii[p], j = sched.jj[p];
+      while (ready < max(i, j)) {  // layers this pair is first to need
+        ++ready;
+        if (tma) mbar_wait(&bars[ready], 0);
+      }
+      const int8_t* as = sm + i * layer + wm0 * 128;
+      const int8_t* bs = sm + j * layer + BM * kp;
+      auto issue = [&](int (&acc)[NA]) {
+        wgmma_fence();
+#pragma unroll 1
+        for (int st = 0; st < steps; ++st)
+          k1_mma<BN>(acc, as, BM, bs, BN, st, st == 0);
+        wgmma_commit();
+      };
+      // Pair p - 1 folds from the other buffer while pair p multiplies
+      // (written per buffer, so that ptxas sees the fold read only
+      // registers no pending wgmma writes).
+      const float w = p > 0 ? pow2f(sched.wexp[p - 1]) : 0.0f;
+      if (p & 1) {
+        issue(acc1);
+        wgmma_wait<1>();  // pair p - 1 is done
+        fold_all(hi, lo, acc0, w);
+      } else {
+        issue(acc0);
+        wgmma_wait<1>();
+        if (p > 0) fold_all(hi, lo, acc1, w);
+      }
+    }
+    wgmma_wait<0>();
+    const float w = pow2f(sched.wexp[num_pairs - 1]);
+    if ((num_pairs - 1) & 1)
+      fold_all(hi, lo, acc1, w);
+    else
+      fold_all(hi, lo, acc0, w);
+  } else {
+    constexpr int S = k1_stages(BM, BN);
+    constexpr int SB = (BM + BN) * K1_KC;
+    uint64_t* full = bars;
+    uint64_t* empty = bars + K1_MAX_LAYERS;
+    const int nck = (k + K1_KC - 1) / K1_KC;
+    const int per_tile = block_k / K1_KC;
+    const int nkt = (k + block_k - 1) / block_k;
+    const int total = num_pairs * nck;
+    // Stage chunk f into slot f % S once every thread has released the
+    // slot's previous chunk: by TMA from the leader, or byte by byte by
+    // all threads.
+    auto load = [&](int f) {
+      const int slot = f % S, use = f / S;
+      const int p = f / nck, kc = (f % nck) * K1_KC;
+      int8_t* st = sm + slot * SB;
+      if (tma) {
+        if (leader) {
+          if (use > 0) mbar_wait(&empty[slot], (use - 1) & 1);
+          mbar_expect(&full[slot], SB);
+          tma_load(st, &map_a, &full[slot], kc, m0, sched.ii[p]);
+          tma_load(st + BM * K1_KC, &map_b, &full[slot], kc, n0,
+                   sched.jj[p]);
+        }
+      } else {
+        if (use > 0) mbar_wait(&empty[slot], (use - 1) & 1);
+        k1_bytes<BM, NT>(st, a_sl + sched.ii[p] * a_layer, m0, m, kc, K1_KC,
+                         k);
+        k1_bytes<BN, NT>(st + BM * K1_KC, b_sl_t + sched.jj[p] * b_layer,
+                         n0, n, kc, K1_KC, k);
+        fence_proxy_async();
+        mbar_arrive(&full[slot]);
+      }
+    };
+    for (int f = 0; f < S && f < total; ++f) load(f);
+    // The k-tiles of all pairs in fold order, alternating the two
+    // partial buffers; f counts chunks.  Tile u - 1 folds from the other
+    // buffer while tile u's first chunk multiplies (the buffers are
+    // fixed per call, so that ptxas sees the fold read only registers
+    // no pending wgmma writes).
+    int f = 0;
+    auto run_tile = [&](int (&acc)[NA], int (&prev)[NA], int u) {
+      const int c0 = (u % nkt) * per_tile;
+      const int c1 = min(nck, c0 + per_tile);
+#pragma unroll 1
+      for (int c = c0; c < c1; ++c, ++f) {
+        mbar_wait(&full[f % S], (f / S) & 1);
+        const int8_t* st = sm + (f % S) * SB;
+        wgmma_fence();
+#pragma unroll
+        for (int q = 0; q < K1_KC / K1_KSTEP; ++q)
+          k1_mma<BN>(acc, st + wm0 * 128, BM, st + BM * K1_KC, BN, q,
+                     c == c0 && q == 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        // Chunk f - 1's MMAs are done: release its slot (one arrival
+        // per warp), and refill it.
+        if (f > 0) {
+          __syncwarp();
+          if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[(f - 1) % S]);
+          if (f - 1 + S < total) load(f - 1 + S);
+        }
+        if (c == c0 && u > 0)
+          fold_all(hi, lo, prev, pow2f(sched.wexp[(u - 1) / nkt]));
+      }
+    };
+    const int tiles = num_pairs * nkt;
+#pragma unroll 1
+    for (int u = 0; u < tiles; u += 2) {
+      run_tile(acc0, acc1, u);
+      if (u + 1 < tiles) run_tile(acc1, acc0, u + 1);
+    }
+    wgmma_wait<0>();
+    const float w = pow2f(sched.wexp[num_pairs - 1]);
+    if ((tiles - 1) & 1)
+      fold_all(hi, lo, acc1, w);
+    else
+      fold_all(hi, lo, acc0, w);
+  }
+
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g8 = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = m0 + wm0 + warp * 16 + g8 + (c >= 2 ? 8 : 0);
+      const int col = n0 + 8 * j + 2 * t4 + (c & 1);
+      if (row < m && col < n) {
+        hi_out[(size_t)row * n + col] = hi[4 * j + c];
+        lo_out[(size_t)row * n + col] = lo[4 * j + c];
+      }
+    }
 }
 
 // K2 — replaces src/repro/kernels/ops.py::split_gemm_pallas_fused (body
@@ -918,28 +1150,174 @@ cudaError_t launch_fused(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// Shared memory one block may use on an H100 (227 KB).
+constexpr size_t K1_SMEM_MAX = 232448;
+// Dynamic shared memory K1 asks for beyond its operands, to align them.
+constexpr size_t K1_ALIGN_SLACK = 1024;
+
+// Driver-API entry points, reached through the runtime so that the
+// library links no more than the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+using ReplaceAddress = CUresult (*)(CUtensorMap*, void*);
+
+void* driver_entry(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &found) !=
+          cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return p;
+}
+
+// Tensor map of a (layers, rows, k) int8 slice stack as a 3-D (k, rows,
+// layers) tensor, read in boxes of K1_KC bytes x box_rows rows x one
+// layer into 128-byte-swizzled shared rows; out-of-range bytes read as
+// zero.  k must be a multiple of 16 (TMA's stride unit).  A map is
+// encoded once per (layers, rows, k, box_rows) and each call's copy
+// only takes the stack's address (both main paths are host-bound).
+cudaError_t k1_map(CUtensorMap* map, const void* base, int layers, int rows,
+                   int k, int box_rows) {
+  static const EncodeTiled encode =
+      reinterpret_cast<EncodeTiled>(driver_entry("cuTensorMapEncodeTiled"));
+  static const ReplaceAddress replace = reinterpret_cast<ReplaceAddress>(
+      driver_entry("cuTensorMapReplaceAddress"));
+  struct Entry {
+    int layers, rows, k, box_rows;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 128;
+  static Entry cache[kEntries];
+  static int used = 0, next = 0;
+  static std::mutex lock;
+  if (!encode || !replace) return cudaErrorNotSupported;
+  void* addr = const_cast<void*>(base);
+  std::lock_guard<std::mutex> hold(lock);
+  for (int e = 0; e < used; ++e) {
+    const Entry& c = cache[e];
+    if (c.layers == layers && c.rows == rows && c.k == k &&
+        c.box_rows == box_rows) {
+      *map = c.map;
+      return replace(map, addr) == CUDA_SUCCESS ? cudaSuccess
+                                                : cudaErrorInvalidValue;
+    }
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)k, (cuuint64_t)rows,
+                              (cuuint64_t)layers};
+  const cuuint64_t strides[2] = {(cuuint64_t)k, (cuuint64_t)rows * k};
+  const cuuint32_t box[3] = {K1_KC, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, addr, dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  cache[next] = Entry{layers, rows, k, box_rows, *map};
+  next = (next + 1) % kEntries;
+  if (used < kEntries) ++used;
+  return cudaSuccess;
+}
+
+// Launch one K1 instance; its dynamic shared memory limit is raised
+// once per device to the largest size asked for so far.
+template <int WM, int BN, bool RES>
+cudaError_t launch_k1(dim3 grid, size_t smem, cudaStream_t stream,
+                      const CUtensorMap& map_a, const CUtensorMap& map_b,
+                      const int8_t* a, const int8_t* b, float* hi,
+                      float* lo, int m, int k, int n, int block_k,
+                      int layers, int use_tma, int device,
+                      const PairSchedule& sched) {
+  static size_t raised[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  if (smem > raised[device]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        split_gemm_kernel<WM, BN, RES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    raised[device] = smem;
+  }
+  split_gemm_kernel<WM, BN, RES><<<grid, 128 * WM, smem, stream>>>(
+      map_a, map_b, a, b, hi, lo, m, k, n, block_k, layers, use_tma, sched);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// K1's launch arguments after the pointers, fixed per launch shape and
+// plan: the wrapper builds them once per shape (ops._k1_launch_args) and
+// passes their address, so a call converts seven arguments, not 17.
+struct K1Args {
+  int m, k, n, block_k, num_pairs, block_m, block_n, resident;
+  int ii[MAX_PAIRS], jj[MAX_PAIRS], wexp[MAX_PAIRS];
+};
 
 extern "C" {
 
-// K1 launcher: a_sl (s, m, k) int8, b_sl (s, k, n) int8 -> hi, lo (m, n)
-// f32, all contiguous on `device`; runs on `stream`.
-cudaError_t split_gemm_launch(const void* a_sl, const void* b_sl, void* hi,
-                              void* lo, int m, int k, int n, int block_k,
-                              const int* ii, const int* jj, const int* wexp,
-                              int num_pairs, int device, void* stream) {
+// K1 launcher: a_sl (s, m, k) int8, k-major b_sl_t (s, n, k) int8 ->
+// hi, lo (m, n) f32, all contiguous on `device`; runs on `stream` with
+// the plan tile_model.k1_plan gave (block_m x block_n tile, resident or
+// streamed).  A plan the kernel does not take, or
+// whose shared memory does not fit, is refused.
+cudaError_t split_gemm_launch(const void* a_sl, const void* b_sl_t,
+                              void* hi, void* lo, const K1Args* args,
+                              int device, void* stream) {
+  const int m = args->m, k = args->k, n = args->n, block_k = args->block_k;
+  const int block_m = args->block_m, block_n = args->block_n;
+  const int resident = args->resident;
   PairSchedule sched;
   cudaError_t err = check_dims(m, k, n, block_k);
-  if (err == cudaSuccess) err = make_schedule(ii, jj, wexp, num_pairs, &sched);
+  if (err == cudaSuccess)
+    err = make_schedule(args->ii, args->jj, args->wexp, args->num_pairs,
+                        &sched);
   if (err != cudaSuccess) return err;
+  if ((block_m != 64 && block_m != 128) || (m + block_m - 1) / block_m > 65535)
+    return cudaErrorInvalidValue;
+  int layers = 0;
+  for (int p = 0; p < sched.num_pairs; ++p) {
+    const int top = sched.ii[p] > sched.jj[p] ? sched.ii[p] : sched.jj[p];
+    if (top + 1 > layers) layers = top + 1;
+  }
+  size_t smem;
+  if (resident) {
+    if (k > block_k) return cudaErrorInvalidValue;
+    const size_t kp = (size_t)(k + K1_KC - 1) / K1_KC * K1_KC;
+    smem = (size_t)layers * (block_m + block_n) * kp + K1_ALIGN_SLACK;
+  } else {
+    smem = (size_t)k1_stages(block_m, block_n) * (block_m + block_n) * K1_KC +
+           K1_ALIGN_SLACK;
+  }
+  if (smem > K1_SMEM_MAX) return cudaErrorInvalidValue;
+  const int use_tma = k % 16 == 0;
+  CUtensorMap map_a = {}, map_b = {};
+  if (use_tma) {
+    err = k1_map(&map_a, a_sl, layers, m, k, block_m);
+    if (err == cudaSuccess) err = k1_map(&map_b, b_sl_t, layers, n, k, block_n);
+    if (err != cudaSuccess) return err;
+  }
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaGetLastError();  // clear an unrelated earlier launch error
-  const dim3 grid((n + CTA_N - 1) / CTA_N, (m + CTA_M - 1) / CTA_M);
-  split_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)a_sl, (const int8_t*)b_sl, (float*)hi, (float*)lo, m, k,
-      n, block_k, sched);
-  return cudaGetLastError();
+  cudaGetLastError();
+  const dim3 grid((n + block_n - 1) / block_n, (m + block_m - 1) / block_m);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int8_t *a = (const int8_t*)a_sl, *b = (const int8_t*)b_sl_t;
+#define REPRO_K1(BM, BN, RES)                                                \
+  if (block_m == BM && block_n == BN && !resident == !RES)                   \
+    return launch_k1<BM / 64, BN, RES>(grid, smem, st, map_a, map_b, a, b,   \
+                                       (float*)hi, (float*)lo, m, k, n,      \
+                                       block_k, layers, use_tma, device,     \
+                                       sched);
+  REPRO_K1(64, 32, true)
+  REPRO_K1(64, 64, true)
+  REPRO_K1(64, 32, false)
+  REPRO_K1(64, 64, false)
+  REPRO_K1(128, 64, false)
+#undef REPRO_K1
+  return cudaErrorInvalidValue;
 }
 
 // K2 launcher: a_hi, a_lo (m, k) f32, b_hi, b_lo (k, n) f32 -> hi, lo;

@@ -4,9 +4,13 @@ Port of :mod:`repro.kernels.ops`.  Three kernels, written in CUDA C++
 for ``sm_90a`` in ``csrc/split_gemm.cu``, replace the three Pallas
 kernels:
 
-* **K1** :func:`split_gemm` — replaces ``split_gemm_pallas``: pre-sliced
-  int8 stacks ``a_sl (s, m, k)`` / ``b_sl (s, k, n)`` in, the
-  compensated f32 pair ``(hi, lo)`` out;
+* **K1** :func:`split_gemm_kmajor` — replaces ``split_gemm_pallas``:
+  pre-sliced int8 stacks ``a_sl (s, m, k)`` and, k-major,
+  ``b_sl_t (s, n, k)`` in, the compensated f32 pair ``(hi, lo)`` out;
+  :func:`split_gemm` takes B's stack as the reference lays it out,
+  ``(s, k, n)``, and transposes it in front of the kernel.
+  :func:`ozaki_matmul` slices B k-major directly and calls
+  :func:`split_gemm_kmajor`, so the main paths never transpose;
 * **K2** :func:`split_gemm_fused` — replaces ``split_gemm_pallas_fused``:
   the operands enter as exact f32 ``(hi, lo)`` halves of the
   sigma-scaled A and B and are quantized to int8 in shared memory, so no
@@ -61,6 +65,8 @@ __all__ = [
     "split_gemm",
     "split_gemm_fused",
     "split_gemm_fused_plain",
+    "split_gemm_kmajor",
+    "split_gemm_kmajor_plain",
     "split_gemm_plain",
     "split_gemm_v1",
     "split_gemm_v1_pairs",
@@ -92,7 +98,8 @@ def _fold_k_tiles(hi, lo, a_q, b_q, w: float, bk: int):
 
 def split_gemm_plain(a_sl, b_sl, num_splits: int,
                      slice_bits: int = SLICE_BITS, block_k: int = 128):
-    """Plain version of K1: the kernel's loop nest in eager torch."""
+    """Plain version of K1: the reference's loop nest in eager torch
+    (pair-major, then k-tile, then the TwoSum fold)."""
     _, m, k = a_sl.shape
     n = b_sl.shape[2]
     bk = tile_model.effective_block_k(k, block_k)
@@ -105,10 +112,18 @@ def split_gemm_plain(a_sl, b_sl, num_splits: int,
     return hi, lo
 
 
+def split_gemm_kmajor_plain(a_sl, b_sl_t, num_splits: int,
+                            slice_bits: int = SLICE_BITS,
+                            block_k: int = 128):
+    """Plain version of K1 on k-major B slices ``(s, n, k)``."""
+    return split_gemm_plain(a_sl, b_sl_t.transpose(1, 2), num_splits,
+                            slice_bits, block_k)
+
+
 @functools.lru_cache(maxsize=None)
 def _host_schedule(num_splits: int, slice_bits: int):
     """(ii, jj, wexp) as ctypes int arrays, built once per schedule;
-    the K1 and K2 launchers copy them into the kernel's parameters."""
+    the K2 launcher copies them into the kernel's parameters."""
     arrays = pair_schedule_arrays(num_splits, slice_bits)
     return tuple((ctypes.c_int * len(x))(*x.tolist()) for x in arrays)
 
@@ -165,7 +180,7 @@ def gather_pairs_kmajor(a_sl, b_sl, num_splits: int,
         return gather_pairs_kmajor_plain(a_sl, b_sl, num_splits, slice_bits)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch_gather(_build.load(), _stream(dev), a_sl, b_sl,
+    return _launch_gather(_lib(), _stream(dev), a_sl, b_sl,
                           num_splits, slice_bits)
 
 
@@ -248,37 +263,99 @@ def _raise_on(lib, code: int, what: str):
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {code})")
 
 
+def _lib():
+    """The kernel library (one attribute read once it is loaded)."""
+    return _build._LIB or _build.load()
+
+
+def _check_k1(a_sl, b_sl, num_splits: int, b_name: str):
+    """K1's one validation per call; returns (m, k, n)."""
+    dev = a_sl.device
+    _check_inputs({"a_sl": a_sl, b_name: b_sl}, torch.int8, dev)
+    s, m, k = a_sl.shape
+    if b_name == "b_sl_t":
+        s2, n, k2 = b_sl.shape
+    else:
+        s2, k2, n = b_sl.shape
+    if s != num_splits or s2 != num_splits or k2 != k:
+        raise ValueError(f"slice stacks {tuple(a_sl.shape)} and {b_name} "
+                         f"{tuple(b_sl.shape)} do not match "
+                         f"num_splits={num_splits}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return m, k, n
+
+
 def split_gemm(a_sl, b_sl, num_splits: int, slice_bits: int = SLICE_BITS,
-               block_k: int = 128):
+               block_k: int = 128, plan: tile_model.K1Plan | None = None):
     """K1 over pre-sliced operands: ``(hi, lo)`` f32 of shape (m, n).
 
     Args:
       a_sl: (s, m, k) int8 slices of A, contiguous.
-      b_sl: (s, k, n) int8 slices of B, contiguous, on A's device.
+      b_sl: (s, k, n) int8 slices of B, contiguous, on A's device; on
+        the card it is transposed to k-major in front of the kernel.
       block_k: k-tile width; rounded like the reference's (a multiple of
         128, at most the padded k).  It sets the bits of the result.
+      plan: a :class:`~repro_torch.kernels.tile_model.K1Plan` to force
+        (one of ``tile_model.k1_plans``); by default ``k1_plan``'s.
     """
-    dev = a_sl.device
-    _check_inputs({"a_sl": a_sl, "b_sl": b_sl}, torch.int8, dev)
-    s, m, k = a_sl.shape
-    s2, k2, n = b_sl.shape
-    if s != num_splits or s2 != num_splits or k2 != k:
-        raise ValueError(f"slice stacks {tuple(a_sl.shape)} @ "
-                         f"{tuple(b_sl.shape)} do not match "
-                         f"num_splits={num_splits}")
-    if dev.type == "cpu":
+    m, k, n = _check_k1(a_sl, b_sl, num_splits, "b_sl")
+    if a_sl.device.type == "cpu":
         return split_gemm_plain(a_sl, b_sl, num_splits, slice_bits, block_k)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    return _launch_k1(a_sl, b_sl.transpose(1, 2).contiguous(), m, k, n,
+                      num_splits, slice_bits, block_k, plan)
+
+
+def split_gemm_kmajor(a_sl, b_sl_t, num_splits: int,
+                      slice_bits: int = SLICE_BITS, block_k: int = 128,
+                      plan: tile_model.K1Plan | None = None):
+    """K1 with B's slices k-major: ``(hi, lo)`` f32 of shape (m, n).
+
+    Args:
+      a_sl: (s, m, k) int8 slices of A, contiguous.
+      b_sl_t: (s, n, k) int8 slices of B, k-major (``slice_matrix(b.mT,
+        s, axis=1)``), contiguous, on A's device.
+      block_k, plan: as for :func:`split_gemm`.
+    """
+    m, k, n = _check_k1(a_sl, b_sl_t, num_splits, "b_sl_t")
+    if a_sl.device.type == "cpu":
+        return split_gemm_kmajor_plain(a_sl, b_sl_t, num_splits, slice_bits,
+                                       block_k)
+    return _launch_k1(a_sl, b_sl_t, m, k, n, num_splits, slice_bits,
+                      block_k, plan)
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_launch_args(m, k, n, num_splits, slice_bits, block_k, plan):
+    """The launcher's arguments after the pointers, per launch shape:
+    the k-tile, the schedule and the plan's fields, in one struct.  A
+    forced plan K1 cannot take raises ``ValueError``."""
     bk = tile_model.effective_block_k(k, block_k)
-    lib = _build.load()
+    if plan is None:
+        plan = tile_model.k1_plan(m, k, n, num_splits, bk)
+    elif plan not in tile_model.k1_plans(m, k, n, num_splits, bk):
+        raise ValueError(f"K1 cannot take {plan} at (m, k, n, s) = "
+                         f"({m}, {k}, {n}, {num_splits}), block_k {bk}")
+    ii, jj, wexp = pair_schedule_arrays(num_splits, slice_bits)
+    args = _build.K1Args(m=m, k=k, n=n, block_k=bk, num_pairs=len(ii),
+                         block_m=plan.block_m, block_n=plan.block_n,
+                         resident=int(plan.resident))
+    args.ii[:len(ii)], args.jj[:len(ii)] = ii.tolist(), jj.tolist()
+    args.wexp[:len(ii)] = wexp.tolist()
+    return args
+
+
+def _launch_k1(a_sl, b_sl_t, m, k, n, num_splits, slice_bits, block_k,
+               plan):
+    """K1 on slice stacks already checked."""
+    dev = a_sl.device
+    args = _k1_launch_args(m, k, n, num_splits, slice_bits, block_k, plan)
+    lib = _lib()
     hi = torch.empty((m, n), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
-    ii, jj, wexp = _host_schedule(num_splits, slice_bits)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.split_gemm_launch(
-        a_sl.data_ptr(), b_sl.data_ptr(), hi.data_ptr(), lo.data_ptr(),
-        m, k, n, bk, ii, jj, wexp, len(ii), dev.index or 0, stream)
+    code = lib.split_gemm_launch(a_sl.data_ptr(), b_sl_t.data_ptr(),
+                                 hi.data_ptr(), lo.data_ptr(), args,
+                                 dev.index or 0, _stream(dev))
     _raise_on(lib, code, "split_gemm")
     LAUNCHES["split_gemm"] += 1
     return hi, lo
@@ -308,7 +385,7 @@ def split_gemm_fused(a_hi, a_lo, b_hi, b_lo, num_splits: int,
         raise ValueError(f"unsupported device {dev}")
     bk = tile_model.effective_block_k(k, block_k)
     plan = tile_model.fused_plan(num_splits, -(-k // bk))
-    lib = _build.load()
+    lib = _lib()
     hi = torch.empty((m, n), dtype=torch.float32, device=dev)
     lo = torch.empty_like(hi)
     ii, jj, wexp = _host_schedule(num_splits, slice_bits)
@@ -346,7 +423,7 @@ def split_gemm_v1(a_sl, b_sl, num_splits: int,
         raise ValueError(f"unsupported device {dev}")
     # The gather's outputs need no second check: one validation per call
     # keeps the host's share of this short call small.
-    lib, stream = _build.load(), _stream(dev)
+    lib, stream = _lib(), _stream(dev)
     copies = _launch_gather(lib, stream, a_sl, b_sl, num_splits,
                             slice_bits)
     return _launch_v1(lib, stream, *copies,
@@ -381,7 +458,7 @@ def split_gemm_v1_pairs(a_pairs, b_pairs_t, weights, block_k: int = 128):
         return hi, lo
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    return _launch_v1(_build.load(), _stream(dev), a_pairs, b_pairs_t,
+    return _launch_v1(_lib(), _stream(dev), a_pairs, b_pairs_t,
                       weights, bk)
 
 
@@ -415,8 +492,9 @@ def ozaki_matmul(a, b, num_splits: int = 6, accumulator: str = "df32",
     :func:`repro_torch.core.ozaki_matmul` or a backend).  Blocks come
     from ``tiles`` or explicit ``block_*`` arguments, else from
     :func:`repro_torch.kernels.tile_model.select_tiles`.  Only
-    ``block_k`` changes the result; the CUDA kernels run their compiled
-    CTA tile (64x64, K2's 32x32) whatever ``block_m``/``block_n`` say.
+    ``block_k`` changes the result; the CUDA kernels run their own CTA
+    tile (K1's :func:`~repro_torch.kernels.tile_model.k1_plan`, K2's
+    32x32) whatever ``block_m``/``block_n`` say.
     """
     if accumulator not in ("df32", None):
         raise ValueError(
@@ -451,10 +529,12 @@ def ozaki_matmul(a, b, num_splits: int = 6, accumulator: str = "df32",
     else:
         a_sl, sigma_a = slice_matrix(a, num_splits, axis=1,
                                      slice_bits=slice_bits)
-        b_sl, sigma_b = slice_matrix(b, num_splits, axis=0,
-                                     slice_bits=slice_bits)
-        hi, lo = split_gemm(a_sl, b_sl, num_splits, slice_bits=slice_bits,
-                            block_k=block_k)
+        # B's slices k-major, (s, n, k): bit for bit the transpose of
+        # slicing B along axis 0, written k-major by the same pass.
+        b_sl_t, sigma_b = slice_matrix(b.mT, num_splits, axis=1,
+                                       slice_bits=slice_bits)
+        hi, lo = split_gemm_kmajor(a_sl, b_sl_t, num_splits,
+                                   slice_bits=slice_bits, block_k=block_k)
     deferred = 2.0 ** (-slice_bits * (num_splits + 1))
     c = (hi.to(out_dtype) + lo.to(out_dtype)) * deferred
     scale = (sigma_a[:, None] * sigma_b[None, :]).to(out_dtype)

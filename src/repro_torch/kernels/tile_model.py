@@ -17,9 +17,15 @@ of (128, 256, 512) not above ``align_up(k, 128)``, and 512 when ``k``
 is unknown, whatever the TPU's rates.  ``tests/test_torch_kernels.py``
 holds this against the reference over a sweep of shapes.
 
-``block_m``/``block_n`` are the CUDA kernels' CTA tile (64x64 for K1
-and K3, 32x32 for K2), a Hopper choice that does not change the bits.  No TPU rate (clock, VMEM, HBM
-bandwidth) is used here; pricing tiles for Hopper is later work.
+``block_m``/``block_n`` are the CUDA kernels' CTA tile (K1's from
+:func:`k1_plan`, 64x64 for K3, 32x32 for K2), a Hopper choice that does
+not change the bits.  No TPU rate (clock, VMEM, HBM bandwidth) is used
+here.
+
+:func:`k1_plan` is K1's launch plan: its CTA tile and whether the CTA
+keeps all ``s`` slice layers resident in shared memory (one k-tile) or
+streams the (pair, k-chunk) sequence through a ring.  The launcher takes
+the plan's fields, so the CPU tests replay the loop nest it drives.
 
 :func:`fused_plan` is K2's group rule: how many consecutive pairs of the
 schedule share one slicing pass of each k-chunk, given the split count,
@@ -47,16 +53,19 @@ __all__ = [
     "Traffic",
     "align_up",
     "FusedPlan",
+    "K1Plan",
     "block_k_for",
     "effective_block_k",
     "fused_plan",
     "hbm_bytes_per_step",
+    "k1_plan",
+    "k1_plans",
     "pair_schedule",
     "select_tiles",
     "traffic",
 ]
 
-#: Output tile of one CTA of the split-GEMM kernels (compiled in).
+#: Output tile of one CTA of K3 (compiled in).
 CTA_M = 64
 CTA_N = 64
 #: k-tiles are whole multiples of this (the reference's int8 lane rule,
@@ -95,6 +104,30 @@ MAX_KERNEL_SPLITS = 16
 #: A and (k-major) B rows padded by 16 bytes, and its shared memory.
 V1_STAGES = 4
 V1_SMEM_BYTES = V1_STAGES * (CTA_M + CTA_N) * (K_CHUNK + 16)
+
+#: K1's CTA tiles (block_m, block_n), compiled in: warpgroups (128
+#: threads) of 64 rows side by side along m, each running wgmma
+#: m64n{block_n}k32.
+K1_TILES = ((64, 32), (64, 64), (128, 64))
+#: k-bytes of one 128-byte-swizzled block of shared rows: a streamed
+#: ring stage's k-chunk, and the unit resident rows are padded to.
+K1_K_CHUNK = 128
+#: Dynamic shared memory K1 asks for beyond its operands, to align them
+#: to the swizzle's 1024-byte atoms, and its static shared memory (the
+#: mbarriers).
+K1_ALIGN_SLACK = 1024
+K1_STATIC_SMEM = 32 * 8
+#: Streaming multiprocessors of an H100 SXM: a grid with fewer CTAs
+#: leaves SMs idle; shared memory of one SM.
+NUM_SMS = 132
+SMEM_PER_SM = 233_472
+#: The streamed plans' cost model (k1_plan), fitted to the plan sweep
+#: on an H100 80GB HBM3 at 700 W (``chip_smoke.py --k1-plans``,
+#: PERF.md): the L2-to-SM read rate the large LM grids reached, and
+#: microseconds per 128-byte chunk of one CTA's chain where the grid is
+#: too small for L2 to bind.
+K1_L2_BYTES_PER_S = 5.1e12
+K1_CHUNK_US = {(64, 32): 0.63, (64, 64): 0.765, (128, 64): 0.75}
 
 
 def align_up(x: int, multiple: int) -> int:
@@ -163,6 +196,99 @@ def fused_plan(num_splits: int, num_k_tiles: int) -> FusedPlan:
         group=group, hold=hold,
         partial_registers=hold * FUSED_PARTIAL_REGISTERS,
         smem_bytes=FUSED_STAGE_BYTES + num_splits * FUSED_SLICE_BYTES)
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """K1's launch plan for one (m, k, n, s, block_k)."""
+
+    block_m: int        # CTA tile rows (64 per warpgroup)
+    block_n: int        # CTA tile columns
+    resident: bool      # all s slice layers in shared memory at once
+    smem_bytes: int     # dynamic shared memory per CTA
+    ctas: int           # CTAs in the grid
+
+
+def k1_stages(bm: int, bn: int) -> int:
+    """Streamed K1's ring depth for a tile (compiled in): three
+    single-warpgroup CTAs fit an SM, 128x64 runs one."""
+    return {96: 6, 128: 4}.get(bm + bn, 8)
+
+
+def _k1_candidate(m, k, n, s, bk, bm, bn, resident):
+    """The plan for one tile and residency, or None if K1 cannot take
+    it (residency needs one k-tile, its layers in 227 KB and one
+    warpgroup: the rule never picks a resident 128x64 tile, so it is
+    not compiled)."""
+    if resident:
+        if bm != 64 or k > bk:
+            return None
+        smem = s * (bm + bn) * align_up(k, K1_K_CHUNK) + K1_ALIGN_SLACK
+    else:
+        smem = k1_stages(bm, bn) * (bm + bn) * K1_K_CHUNK + K1_ALIGN_SLACK
+    if smem + K1_STATIC_SMEM > SMEM_PER_BLOCK:
+        return None
+    return K1Plan(block_m=bm, block_n=bn, resident=resident,
+                  smem_bytes=smem, ctas=-(-m // bm) * -(-n // bn))
+
+
+def _k1_args(m, k, n, num_splits, block_k):
+    if min(m, k, n) < 1:
+        raise ValueError(f"empty GEMM ({m}, {k}, {n})")
+    if not 1 <= num_splits <= MAX_KERNEL_SPLITS:
+        raise ValueError(f"num_splits={num_splits} outside [1, "
+                         f"{MAX_KERNEL_SPLITS}]")
+    return block_k_for(k) if block_k is None else effective_block_k(
+        k, block_k)
+
+
+@functools.lru_cache(maxsize=None)
+def k1_plans(m: int, k: int, n: int, num_splits: int,
+             block_k: int | None = None) -> tuple[K1Plan, ...]:
+    """Every plan K1 can run this launch with (tile, residency)."""
+    bk = _k1_args(m, k, n, num_splits, block_k)
+    found = (_k1_candidate(m, k, n, num_splits, bk, bm, bn, res)
+             for res in (True, False) for bm, bn in K1_TILES)
+    return tuple(p for p in found if p is not None)
+
+
+def _k1_streamed_ms(plan: K1Plan, m: int, k: int, n: int,
+                    num_splits: int) -> float:
+    """Modelled time of a streamed plan: the larger of its L2 reads at
+    the rate the plan sweep reached and its waves of per-CTA chunk
+    chains (``K1_CHUNK_US`` per 128-byte chunk, measured where the grid
+    is too small to be bound by L2)."""
+    chunks = num_pair_gemms(num_splits) * -(-k // K1_K_CHUNK)
+    reads = plan.ctas * chunks * (plan.block_m + plan.block_n) * K1_K_CHUNK
+    per_sm = min(3 if plan.block_m == 64 else 1,
+                 SMEM_PER_SM // (plan.smem_bytes + K1_STATIC_SMEM))
+    waves = -(-plan.ctas // (NUM_SMS * per_sm))
+    chain = waves * chunks * K1_CHUNK_US[plan.block_m, plan.block_n] / 1e3
+    return max(reads / K1_L2_BYTES_PER_S * 1e3, chain)
+
+
+@functools.lru_cache(maxsize=None)
+def k1_plan(m: int, k: int, n: int, num_splits: int,
+            block_k: int | None = None) -> K1Plan:
+    """K1's plan for one launch; cached per shape.
+
+    The rule, from the plan sweep on an H100 (PERF.md): with one
+    k-tile, keep the slice layers resident on the 64x64 tile if they
+    fit and its grid fills the card's SMs, or, on a smaller grid, on the
+    64x32 tile (twice the CTAs) if they fit there; otherwise stream, on
+    the tile :func:`_k1_streamed_ms` models fastest (64x32 where the
+    grid is small, 64x64 or 128x64 where L2 reads bound it).  A launch
+    forces another plan by passing one of :func:`k1_plans` to the
+    wrappers' ``plan=``.
+    """
+    plans = k1_plans(m, k, n, num_splits, block_k)
+    kept = {(p.block_m, p.block_n): p for p in plans if p.resident}
+    small = -(-m // 64) * -(-n // 64) < NUM_SMS
+    for tile in ((64, 32), (64, 64)) if small else ((64, 64),):
+        if tile in kept:
+            return kept[tile]
+    return min((p for p in plans if not p.resident),
+               key=lambda p: _k1_streamed_ms(p, m, k, n, num_splits))
 
 
 def pair_schedule(num_splits: int, mode: str = "ordered"):
@@ -261,14 +387,15 @@ def traffic(m: int, k: int, n: int, num_splits: int, bm: int = CTA_M,
 class TileDecision:
     """The pick for one GEMM site; the reference's fields.
 
-    On Hopper ``vmem_bytes`` is the shared memory one CTA stages per
-    k-chunk (int8 A and B tiles; for K2 its whole dynamic shared
-    memory, the f32 stages and the ``s`` slices), ``mxu_cycles_step``
-    is the number of ``mma.sync`` m16n8k32 instructions one CTA issues
-    per (pair, k-tile) step, and ``hbm_bytes_step`` the bytes one such step
-    streams (int8 slices, or the f32 hi/lo halves when fused).
-    ``kernel_invocations`` and ``traffic_model`` (:func:`traffic`) are
-    None for a canonical pick (m or n unknown), as in the reference.
+    On Hopper ``vmem_bytes`` is one CTA's dynamic shared memory (K1's
+    plan's; for K2 the f32 stages and the ``s`` slices; per k-chunk
+    staged int8 tiles when the shape is unknown), ``mxu_cycles_step``
+    the number of MMA instructions one CTA issues per (pair, k-tile)
+    step (K1's wgmma m64nNk32, K2's mma.sync m16n8k32), and
+    ``hbm_bytes_step`` the bytes one such step streams (int8 slices, or
+    the f32 hi/lo halves when fused).  ``kernel_invocations`` and
+    ``traffic_model`` (:func:`traffic`) are None for a canonical pick (m
+    or n unknown), as in the reference.
     """
 
     block_m: int
@@ -291,29 +418,42 @@ class TileDecision:
                 "schedule": self.schedule}
 
 
+@functools.lru_cache(maxsize=None)
 def select_tiles(m: int | None, k: int | None, n: int | None,
                  num_splits: int, dtype=None, *,
                  fused: bool = False) -> TileDecision:
-    """Pick ``block_m/n/k`` for an emulated GEMM — closed form, no sweep.
+    """Pick ``block_m/n/k`` for an emulated GEMM — closed form, no sweep,
+    cached per site shape.
 
     ``dtype`` is accepted for the reference's (m, k, n, s, dtype)
-    contract and does not change the pick.
+    contract and does not change the pick.  Unfused, with the shape
+    known, ``block_m``/``block_n`` are K1's plan tile (:func:`k1_plan`).
     """
     del dtype
-    bm, bn = (FUSED_CTA_M, FUSED_CTA_N) if fused else (CTA_M, CTA_N)
     bk = block_k_for(k)
+    known = m is not None and k is not None and n is not None
+    if fused:
+        bm, bn = FUSED_CTA_M, FUSED_CTA_N
+        vmem = FUSED_STAGE_BYTES + num_splits * FUSED_SLICE_BYTES
+        mmas = (bm // 16) * (bn // 8) * (bk // 32)
+    elif known and 1 <= num_splits <= MAX_KERNEL_SPLITS:
+        plan = k1_plan(m, k, n, num_splits, bk)
+        bm, bn, vmem = plan.block_m, plan.block_n, plan.smem_bytes
+        mmas = (bm // 64) * (bk // 32)
+    else:
+        bm, bn = CTA_M, CTA_N
+        vmem = (bm + bn) * K_CHUNK
+        mmas = (bm // 16) * (bn // 8) * (bk // 32)
     pairs = num_pair_gemms(num_splits)
     invocations = traffic_model = None
-    if m is not None and k is not None and n is not None:
+    if known:
         invocations = ((align_up(m, bm) // bm) * (align_up(n, bn) // bn)
                        * pairs * (align_up(k, bk) // bk))
         traffic_model = traffic(m, k, n, num_splits, bm, bn, bk,
                                 fused=fused)
     return TileDecision(
         block_m=bm, block_n=bn, block_k=bk, num_splits=num_splits,
-        pairs=pairs, schedule="ordered", fused=fused,
-        vmem_bytes=(FUSED_STAGE_BYTES + num_splits * FUSED_SLICE_BYTES
-                    if fused else (bm + bn) * K_CHUNK),
-        mxu_cycles_step=(bm // 16) * (bn // 8) * (bk // 32),
+        pairs=pairs, schedule="ordered", fused=fused, vmem_bytes=vmem,
+        mxu_cycles_step=mmas,
         hbm_bytes_step=hbm_bytes_per_step(bm, bn, bk, fused=fused),
         kernel_invocations=invocations, traffic_model=traffic_model)

@@ -70,6 +70,78 @@ def test_k1_bitwise_at_the_lm_shapes(m, k, n, num_splits):
     assert _bitwise(got, ops.split_gemm_plain(a_sl, b_sl, s, block_k=bk))
 
 
+# K1's shapes on the main paths: the MuST block GEMMs (one k-tile),
+# SmolLM-360M's prefill GEMMs at a full and a ragged wave (two and five
+# k-tiles), and ragged and tiny ones (k not a multiple of 16).
+K1_SHAPES = ([(256, 256, n) for n in (256, 512, 2048, 4096)]
+             + [(m, k, n) for m in (512, 221)
+                for k, n in ((960, 960), (960, 320), (960, 2560),
+                             (2560, 960))]
+             + [(37, 130, 51), (1, 129, 1), (100, 1100, 60)])
+
+
+@pytest.mark.parametrize("num_splits", [1, 2, 3, 6, 9, 14, 16])
+@pytest.mark.parametrize("m,k,n", K1_SHAPES)
+def test_k1_bitwise_under_every_plan(m, k, n, num_splits):
+    a, b = _operands(m, k, n, 13, torch.float64)
+    s = num_splits
+    bk = tile_model.select_tiles(m, k, n, s).block_k
+    a_sl, _ = slice_matrix(a, s, axis=1)
+    b_sl, _ = slice_matrix(b, s, axis=0)
+    b_t, _ = slice_matrix(b.mT, s, axis=1)
+    assert b_t.is_contiguous()
+    assert torch.equal(b_t, b_sl.transpose(1, 2))
+    want = ops.split_gemm_plain(a_sl, b_sl, s, block_k=bk)
+    plans = tile_model.k1_plans(m, k, n, s, bk)
+    assert tile_model.k1_plan(m, k, n, s, bk) in plans
+    for plan in plans:
+        before = ops.LAUNCHES["split_gemm"]
+        got = ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk, plan=plan)
+        assert ops.LAUNCHES["split_gemm"] == before + 1
+        assert _bitwise(got, want), plan
+        assert _bitwise(ops.split_gemm(a_sl, b_sl, s, block_k=bk,
+                                       plan=plan), want), plan
+
+
+def test_k1_reads_each_calls_operands():
+    # The launcher encodes a tensor map once per shape and gives each
+    # call's copy that call's address: alternate two operand sets of
+    # one shape (and a third of another) and hold every result.
+    shape, s = (256, 256, 512), 6
+    cases = []
+    for seed, (m, k, n) in ((21, shape), (22, shape), (23, (64, 256, 512))):
+        a, b = _operands(m, k, n, seed, torch.float64)
+        a_sl, _ = slice_matrix(a, s, axis=1)
+        b_t, _ = slice_matrix(b.mT, s, axis=1)
+        cases.append((a_sl, b_t, ops.split_gemm_kmajor_plain(
+            a_sl.cpu(), b_t.cpu(), s, block_k=256)))
+    for _ in range(2):
+        for a_sl, b_t, want in cases:
+            got = ops.split_gemm_kmajor(a_sl, b_t, s, block_k=256)
+            assert _bitwise(tuple(x.cpu() for x in got), want)
+
+
+def test_k1_refuses_a_plan_it_cannot_take():
+    a_sl = torch.zeros((6, 512, 960), dtype=torch.int8, device="cuda")
+    b_t = torch.zeros((6, 320, 960), dtype=torch.int8, device="cuda")
+    resident = tile_model.k1_plan(256, 256, 4096, 6)
+    with pytest.raises(ValueError):
+        ops.split_gemm_kmajor(a_sl, b_t, 6, block_k=512, plan=resident)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("m,k,n", [(256, 256, 4096), (512, 960, 320),
+                                   (37, 130, 51)])
+def test_ozaki_matmul_on_card_equals_cpu(m, k, n, fuse):
+    # The unfused route slices B k-major on the card (its _pow2_scale's
+    # log runs there) and launches K1 through split_gemm_kmajor.
+    a, b = _operands(m, k, n, 14, torch.float64)
+    got = ops.ozaki_matmul(a, b, num_splits=6, fuse_slicing=fuse)
+    want = ops.ozaki_matmul(a.cpu(), b.cpu(), num_splits=6,
+                            fuse_slicing=fuse)
+    assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("num_splits", [3, 6, 9])
 @pytest.mark.parametrize("m,k,n", [(37, 130, 51), (100, 1100, 60)])
 def test_k3_bitwise_against_plain_and_k1(m, k, n, num_splits):

@@ -7,6 +7,9 @@ CUDA kernels themselves are held bitwise against these plain versions
 on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
 
+import ctypes
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -184,6 +187,178 @@ class TestK2LoopNest:
             assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
+def _k1_replay(a_sl, b_sl_t, s, bits, bk, plan):
+    """K1's loop nest in eager torch for one plan: each block_m x block_n
+    CTA tile, its operand rows zero-padded past m, n and k as the kernel
+    stages them; resident, every pair's one k-tile from all 32-byte k
+    steps; streamed, the k-tiles of the pairs in fold order from
+    128-byte chunks; each exact int32 partial TwoSum-folded."""
+    _, m, k = a_sl.shape
+    n = b_sl_t.shape[1]
+    bm, bn = plan.block_m, plan.block_n
+    step = 32 if plan.resident else tile_model.K1_K_CHUNK
+    kp = tile_model.align_up(k, tile_model.K1_K_CHUNK)
+    ii, jj, wexp = ops.pair_schedule_arrays(s, bits)
+    a = torch.zeros((s, tile_model.align_up(m, bm), kp), dtype=torch.int8)
+    b = torch.zeros((s, tile_model.align_up(n, bn), kp), dtype=torch.int8)
+    a[:, :m, :k], b[:, :n, :k] = a_sl, b_sl_t
+    hi = torch.zeros((a.shape[1], b.shape[1]), dtype=torch.float32)
+    lo = torch.zeros_like(hi)
+    for r0 in range(0, a.shape[1], bm):
+        for c0 in range(0, b.shape[1], bn):
+            h = torch.zeros((bm, bn), dtype=torch.float32)
+            lw = torch.zeros_like(h)
+            for p in range(len(ii)):
+                w = float(np.ldexp(np.float32(1.0), int(wexp[p])))
+                for k0 in range(0, k, bk):
+                    part = torch.zeros((bm, bn), dtype=torch.int32)
+                    for q in range(k0, min(k0 + bk, kp), step):
+                        part += core_port.int8_matmul_exact(
+                            a[ii[p], r0:r0 + bm, q:q + step],
+                            b[jj[p], c0:c0 + bn, q:q + step].T)
+                    h, err = core_port._two_sum(
+                        h, part.to(torch.float32) * w)
+                    lw = lw + err
+            hi[r0:r0 + bm, c0:c0 + bn] = h
+            lo[r0:r0 + bm, c0:c0 + bn] = lw
+    return hi[:m, :n], lo[:m, :n]
+
+
+# (m, k, n, block_k): one, two and five k-tiles, ragged edges and k.
+K1_REPLAY_SHAPES = [(70, 100, 40, 128), (65, 200, 33, 128),
+                    (9, 600, 70, 128)]
+
+
+class TestK1LoopNest:
+    @pytest.mark.parametrize("num_splits", [1, 3, 5, 9, 14])
+    @pytest.mark.parametrize("m,k,n,bk", K1_REPLAY_SHAPES)
+    def test_replay_bitwise_for_every_plan(self, m, k, n, bk, num_splits):
+        a, b = _operands(m, k, n, 41, np.float64)
+        s = num_splits
+        a_sl, _ = core_port.slice_matrix(torch.from_numpy(a), s, axis=1)
+        b_t, _ = core_port.slice_matrix(torch.from_numpy(b).mT, s, axis=1)
+        want = ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk)
+        hi_r, lo_r = ops_ref.split_gemm_pallas(
+            jnp.asarray(a_sl.numpy()),
+            jnp.asarray(b_t.transpose(1, 2).numpy()), s, block_k=bk,
+            interpret=True)
+        assert same_bits(hi_r, want[0]) and same_bits(lo_r, want[1])
+        plans = tile_model.k1_plans(m, k, n, s, bk)
+        assert any(p.resident for p in plans) == (k <= bk)
+        for plan in plans:
+            got = _k1_replay(a_sl, b_t, s, 6, bk, plan)
+            assert torch.equal(got[0], want[0]), plan
+            assert torch.equal(got[1], want[1]), plan
+
+
+class TestK1Plan:
+    def test_plans_stay_within_their_budgets(self):
+        for s in range(1, tile_model.MAX_KERNEL_SPLITS + 1):
+            for m, k, n in ((256, 256, 4096), (256, 256, 256),
+                            (512, 960, 2560), (221, 2560, 960),
+                            (1, 129, 1), (37, 130, 51), (100, 1100, 60)):
+                bk = tile_model.block_k_for(k)
+                plans = tile_model.k1_plans(m, k, n, s, bk)
+                assert {(p.block_m, p.block_n) for p in plans
+                        if not p.resident} == set(tile_model.K1_TILES)
+                for p in plans:
+                    assert (p.smem_bytes + tile_model.K1_STATIC_SMEM
+                            <= tile_model.SMEM_PER_BLOCK)
+                    assert p.ctas == -(-m // p.block_m) * -(-n // p.block_n)
+                    if p.resident:
+                        assert k <= bk
+                        assert p.smem_bytes == (
+                            s * (p.block_m + p.block_n)
+                            * tile_model.align_up(k, 128)
+                            + tile_model.K1_ALIGN_SLACK)
+                assert tile_model.k1_plan(m, k, n, s, bk) in plans
+
+    def test_rule_at_the_main_paths_shapes(self):
+        def tile(*shape):
+            p = tile_model.k1_plan(*shape)
+            return p.block_m, p.block_n, p.resident
+
+        # MuST, one k-tile: s layers resident where they fit.
+        assert tile(256, 256, 4096, 6) == (64, 64, True)
+        assert tile(256, 256, 4096, 3) == (64, 64, True)
+        assert tile(256, 256, 256, 6) == (64, 32, True)
+        assert tile(256, 256, 256, 9) == (64, 32, True)
+        assert tile(256, 256, 4096, 9)[2] is False
+        assert tile(256, 256, 4096, 16)[2] is False
+        # SmolLM-360M prefill, two and five k-tiles: streamed.
+        assert tile(512, 960, 320, 6) == (64, 32, False)
+        assert tile(512, 960, 2560, 6) == (64, 64, False)
+        assert tile(512, 2560, 960, 6) == (64, 32, False)
+
+    def test_forced_plans_and_what_k1_cannot_take(self):
+        def tiles(*shape):
+            return {(p.block_m, p.block_n, p.resident)
+                    for p in tile_model.k1_plans(*shape)}
+
+        # A plan is forced by passing one of k1_plans to the wrapper.
+        forced = next(p for p in tile_model.k1_plans(256, 256, 4096, 6)
+                      if (p.block_m, p.resident) == (128, False))
+        assert (forced.block_n, forced.ctas) == (64, 128)
+        args = (256, 256, 4096, 6, 6, 256)
+        got = ops._k1_launch_args(*args, forced)
+        assert (got.block_m, got.block_n, got.resident) == (128, 64, 0)
+        # Two k-tiles: no residency.
+        assert not any(r for _, _, r in tiles(512, 960, 320, 6, 512))
+        # s = 9 layers of 64x64 need 295 KB: only 64x32 stays resident.
+        assert {(bm, bn) for bm, bn, r in tiles(256, 256, 4096, 9)
+                if r} == {(64, 32)}
+        with pytest.raises(ValueError):
+            tile_model.k1_plan(256, 256, 4096, 17)
+        with pytest.raises(ValueError):
+            tile_model.k1_plan(0, 256, 4096, 6)
+        for plan in (   # a plan of another shape, and one K1 cannot take
+                tile_model.k1_plan(256, 256, 4096, 6),
+                dataclasses.replace(
+                    tile_model.k1_plan(512, 960, 320, 6), resident=True)):
+            with pytest.raises(ValueError):
+                ops._k1_launch_args(512, 960, 320, 6, 6, 512, plan)
+
+    def test_launch_arguments_carry_the_plan_and_schedule(self):
+        # One struct per shape, laid out as K1Args in split_gemm.cu.
+        assert ops._build.MAX_PAIRS == tile_model.num_pair_gemms(
+            tile_model.MAX_KERNEL_SPLITS)
+        assert ctypes.sizeof(ops._build.K1Args) == 4 * (
+            8 + 3 * ops._build.MAX_PAIRS)
+        for (m, k, n), s in (((256, 256, 4096), 6), ((512, 960, 320), 16),
+                             ((37, 130, 51), 1)):
+            bk = tile_model.effective_block_k(k, 512)
+            plan = tile_model.k1_plan(m, k, n, s, bk)
+            got = ops._k1_launch_args(m, k, n, s, 6, 512, None)
+            ii, jj, wexp = ops.pair_schedule_arrays(s, 6)
+            pairs = len(ii)
+            assert (got.m, got.k, got.n, got.block_k, got.num_pairs) == (
+                m, k, n, bk, pairs)
+            assert (got.block_m, got.block_n, got.resident) == (
+                plan.block_m, plan.block_n, int(plan.resident))
+            assert list(got.ii[:pairs]) == ii.tolist()
+            assert list(got.jj[:pairs]) == jj.tolist()
+            assert list(got.wexp[:pairs]) == wexp.tolist()
+
+    def test_plans_and_launch_arguments_are_cached(self):
+        args = (512, 960, 2560, 6, 6, 512, None)
+        assert ops._k1_launch_args(*args) is ops._k1_launch_args(*args)
+        assert tile_model.k1_plan(512, 960, 2560, 6) is \
+            tile_model.k1_plan(512, 960, 2560, 6)
+        assert tile_model.select_tiles(256, 256, 4096, 6) is \
+            tile_model.select_tiles(256, 256, 4096, 6)
+
+    def test_decision_reports_k1_s_plan(self):
+        for m, k, n in ((256, 256, 4096), (512, 960, 2560),
+                        (512, 2560, 960)):
+            d = tile_model.select_tiles(m, k, n, 6)
+            p = tile_model.k1_plan(m, k, n, 6, d.block_k)
+            assert (d.block_m, d.block_n) == (p.block_m, p.block_n)
+            assert d.vmem_bytes == p.smem_bytes
+            assert d.mxu_cycles_step == (p.block_m // 64) * (d.block_k // 32)
+            assert d.traffic_model == tile_model.traffic(
+                m, k, n, 6, p.block_m, p.block_n, d.block_k)
+
+
 class TestFusedPlan:
     def test_rule_stays_within_its_budgets(self):
         for s in range(1, tile_model.MAX_KERNEL_SPLITS + 1):
@@ -220,7 +395,8 @@ class TestFusedPlan:
             256, 256, 4096, 6, 32, 32, 256, fused=True)
         assert d.kernel_invocations == 8 * 128 * 21
         plain = tile_model.select_tiles(256, 256, 4096, 6)
-        assert (plain.block_m, plain.block_n) == (64, 64)
+        k1 = tile_model.k1_plan(256, 256, 4096, 6)
+        assert (plain.block_m, plain.block_n) == (k1.block_m, k1.block_n)
 
     def test_rejects_what_the_kernel_cannot_take(self):
         with pytest.raises(ValueError):
@@ -366,6 +542,43 @@ class TestWrapper:
         x = torch.zeros((8, 16))
         with pytest.raises(ValueError):
             ops.split_gemm_fused(x, x, x, x, 3)
+
+    def test_kmajor_entry_equals_the_reference_layout_entry(self):
+        a, b = _operands(45, 300, 38, 42, np.float64)
+        a_sl, _ = core_port.slice_matrix(torch.from_numpy(a), 5, axis=1)
+        b_sl, _ = core_port.slice_matrix(torch.from_numpy(b), 5, axis=0)
+        b_t, _ = core_port.slice_matrix(torch.from_numpy(b).mT, 5, axis=1)
+        want = ops.split_gemm(a_sl, b_sl, 5, block_k=128)
+        got = ops.split_gemm_kmajor(a_sl, b_t, 5, block_k=128)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        with pytest.raises(ValueError):   # (s, k, n) given as k-major
+            ops.split_gemm_kmajor(a_sl, b_sl, 5)
+
+    def test_unfused_wrapper_takes_the_kmajor_entry(self, monkeypatch):
+        calls = []
+        kmajor = ops.split_gemm_kmajor
+
+        def spy(a_sl, b_sl_t, *args, **kw):
+            calls.append(tuple(b_sl_t.shape))
+            return kmajor(a_sl, b_sl_t, *args, **kw)
+
+        monkeypatch.setattr(ops, "split_gemm_kmajor", spy)
+        a, b = (torch.from_numpy(x) for x in _operands(20, 70, 30, 43,
+                                                       np.float64))
+        ops.ozaki_matmul(a, b, num_splits=4)
+        assert calls == [(4, 30, 70)]
+
+    @pytest.mark.parametrize("num_splits", [1, 3, 9])
+    @pytest.mark.parametrize("m,k,n", [(1, 129, 1), (100, 1100, 60),
+                                       (70, 600, 33)])
+    def test_unfused_wrapper_matches_reference_at_more_shapes(
+            self, m, k, n, num_splits):
+        a, b = _operands(m, k, n, 44, np.float64)
+        r = ops_ref.ozaki_matmul(jnp.asarray(a), jnp.asarray(b),
+                                 num_splits=num_splits, interpret=True)
+        t = ops.ozaki_matmul(torch.from_numpy(a), torch.from_numpy(b),
+                             num_splits=num_splits)
+        assert same_bits(r, t)
 
     def test_plain_versions_do_not_launch(self):
         before = dict(ops.LAUNCHES)

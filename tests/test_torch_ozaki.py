@@ -74,6 +74,43 @@ class TestPrimitives:
         assert same_bits(r[0], t[0]) and same_bits(r[1], t[1])
 
 
+def _kmajor_operand(k, n, seed, dtype):
+    """B with a column at an exact power of two, one just below 2**-59
+    (where the reference's log2 rounding picks a doubled sigma), a zero
+    column and columns spanning 16 decades."""
+    b = _gauss((k, n), seed, dtype) * np.logspace(-8, 8, n, dtype=dtype)
+    b[:, 0] = 2.0 ** -59
+    if n > 2:
+        b[:, 1] = 0.0
+        b[k // 2, 2] = 2.0 ** 7
+    return b
+
+
+class TestKMajorSlicing:
+    """ops.ozaki_matmul slices B as slice_matrix(b.mT, s, axis=1): the
+    k-major (s, n, k) stack K1 reads, written by the stack itself."""
+
+    @pytest.mark.parametrize("dtype", [np.float32, np.float64])
+    @pytest.mark.parametrize("k,n", [(256, 96), (130, 51), (960, 40),
+                                     (1, 7)])
+    def test_transpose_of_the_axis0_slices_for_every_s(self, k, n, dtype):
+        b = torch.from_numpy(_kmajor_operand(k, n, 31, dtype))
+        for s in range(1, 17):
+            t_sl, t_sig = port.slice_matrix(b.mT, s, axis=1)
+            r_sl, r_sig = port.slice_matrix(b, s, axis=0)
+            assert t_sl.shape == (s, n, k) and t_sl.is_contiguous()
+            assert torch.equal(t_sl, r_sl.transpose(1, 2))
+            assert same_bits(r_sig.numpy(), t_sig)
+
+    @pytest.mark.parametrize("s", [1, 3, 6, 9, 16])
+    def test_equals_the_reference_slices_transposed(self, s):
+        b = _kmajor_operand(200, 33, 32, np.float64)
+        r_sl, r_sig = ref.slice_matrix(jnp.asarray(b), s, axis=0)
+        t_sl, t_sig = port.slice_matrix(torch.from_numpy(b).mT, s, axis=1)
+        assert same_bits(np.swapaxes(np.asarray(r_sl), 1, 2).copy(), t_sl)
+        assert same_bits(r_sig, t_sig)
+
+
 class TestOzakiMatmulBitwise:
     @pytest.mark.parametrize("accumulator", ["df32", "f64"])
     def test_ladder_cases(self, accumulator):
