@@ -482,6 +482,27 @@ def phase_must(n=4096, block=256, n_energies=9):
     return launches
 
 
+def _device_summary(prof, wall, match, tag, top=6):
+    """Read a CUDA profile of ``wall`` seconds: print its ``top`` kernels
+    under ``[tag]`` and return the device's busy seconds, its idle share
+    and the seconds and launches of the events whose name holds
+    ``match``; None (and a line saying so) when the trace holds no
+    device time."""
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    if busy <= 0:
+        print(f"[{tag}] no device time in the trace: idle share not "
+              "measured")
+        return None
+    found = [e for e in events if match in e.key]
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[{tag}]   {e.key[:70]}: "
+              f"{e.self_device_time_total / 1e3:.1f} ms over {e.count} calls")
+    return dict(busy=busy, idle=1 - busy / wall,
+                kern=sum(e.self_device_time_total for e in found) / 1e6,
+                calls=sum(e.count for e in found))
+
+
 def phase_profile(mode, n=4096, block=256, n_energies=9):
     """Device busy share of one energy point of ``mode``, and the share
     of the device time its kernel (K1, or K2 for ``:fused``) takes, with
@@ -506,27 +527,18 @@ def phase_profile(mode, n=4096, block=256, n_energies=9):
         wall = time.perf_counter() - t0
     for key, val in saved.items():
         ops.LAUNCHES[key] = val
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    if busy <= 0:
-        print(f"[profile] {mode}: no device time in the trace: busy share "
-              "not measured")
-        return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    print(f"[profile] one energy (E_f), {mode}, n={n}: wall "
-          f"{wall:.3f} s (profiled), device busy {busy:.3f} s, idle share "
-          f"{1 - busy / wall:.3f}")
-    for e in top:
-        print(f"[profile]   {e.key[:70]}: "
-              f"{e.self_device_time_total / 1e3:.1f} ms over {e.count} calls")
     label, key = (("K2", "split_gemm_fused") if mode.endswith(":fused")
                   else ("K1", "split_gemm_kernel"))
-    found = [e for e in events if key in e.key]
-    kern_s = sum(e.self_device_time_total for e in found) / 1e6
-    calls = sum(e.count for e in found)
-    print(f"[profile] {mode}: {label} {kern_s * 1e3:.1f} ms over {calls} "
-          f"launches, {kern_s / busy:.3f} of the device time, "
-          f"{kern_s / wall:.3f} of the wall; x {n_energies} energies "
+    print(f"[profile] one energy (E_f), {mode}, n={n}: wall "
+          f"{wall:.3f} s (profiled); its top kernels:")
+    got = _device_summary(prof, wall, key, "profile")
+    if got is None:
+        return
+    kern_s, busy = got["kern"], got["busy"]
+    print(f"[profile] {mode}: device busy {busy:.3f} s, idle share "
+          f"{got['idle']:.3f}; {label} {kern_s * 1e3:.1f} ms over "
+          f"{got['calls']} launches, {kern_s / busy:.3f} of the device "
+          f"time, {kern_s / wall:.3f} of the wall; x {n_energies} energies "
           f"= {kern_s * n_energies:.2f} s of {label} per contour")
 
 
@@ -761,22 +773,14 @@ def _profile_wave(eng, policy, rows=2, width=256):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     ops.LAUNCHES.update(saved)
-    events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    if busy <= 0:
-        print("[serve] no device time in the trace: idle share not "
-              "measured")
-        return
-    k1 = [e for e in events if "split_gemm_kernel" in e.key]
-    k1_ms = sum(e.self_device_time_total for e in k1) / 1e3
     print(f"[serve] one emulated prefill wave ({rows}x{width} tokens): "
-          f"wall {wall:.3f} s (profiled), device busy {busy:.3f} s, idle "
-          f"share {1 - busy / wall:.3f}; K1 {k1_ms:.1f} ms of device time "
-          f"over {sum(e.count for e in k1)} launches "
-          f"({k1_ms / 1e3 / busy:.3f} of the busy time)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
-        print(f"[serve]   {e.key[:70]}: "
-              f"{e.self_device_time_total / 1e3:.1f} ms over {e.count} calls")
+          f"wall {wall:.3f} s (profiled); its top kernels:")
+    got = _device_summary(prof, wall, "split_gemm_kernel", "serve", top=5)
+    if got is not None:
+        print(f"[serve] device busy {got['busy']:.3f} s, idle share "
+              f"{got['idle']:.3f}; K1 {got['kern'] * 1e3:.1f} ms of device "
+              f"time over {got['calls']} launches "
+              f"({got['kern'] / got['busy']:.3f} of the busy time)")
 
 
 def phase_lm_ladder(seed=3, tokens_per_row=256, **overrides):
@@ -834,6 +838,326 @@ def phase_lm_ladder(seed=3, tokens_per_row=256, **overrides):
         hold_ladder(errs, floor, f"LM ladder ({label})", fall)
     del model
     return ladders
+
+
+TRAIN_STEPS = 4
+TRAIN_SPLITS = 6
+# Per-step relative difference of the emulated run's loss from the
+# native run's (pallas_int8_6 against native float32).
+TRAIN_LOSS_BOUND = 1e-3
+# Per leaf, max |emulated - native| / max |native| of the gradient at the
+# parameters after one native step (pallas_int8_6 against native
+# float32); step 1's gradient is the head's alone (its init is zero).
+# Measured 1.6e-5 at full width (blocks.attn_norm, NVIDIA H100 80GB
+# HBM3); a backward GEMM off in scale or wiring is off by O(1).
+TRAIN_GRAD_BOUND = 1e-4
+TRAIN_DIR = os.path.join(ROOT, "build", "train_smoke")
+
+
+def train_argv(steps, ckpt_dir, backend="", overrides=None):
+    """``launch.train``'s command line for the smoke: SmolLM-360M at
+    full width (``overrides``, config fields, shrink it for a
+    rehearsal), 4 x 128 tokens a step, lr 3e-3 (the trainer's
+    defaults), a checkpoint only at the end."""
+    argv = ["--arch", "smollm_360m", "--steps", str(steps), "--seq-len",
+            "128", "--global-batch", "4", "--lr", "3e-3", "--seed", "0",
+            "--ckpt-dir", ckpt_dir, "--ckpt-every", "1000",
+            "--log-every", "1"]
+    if overrides:
+        argv += ["--overrides", json.dumps(overrides)]
+    return argv + (["--backend", backend] if backend else [])
+
+
+def _train_setup(overrides):
+    """The smoke's model, its parameters as the train step takes them,
+    fresh AdamW state and the first batch, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW, SyntheticText
+
+    cfg = get_config("smollm_360m").replace(**overrides)
+    model = Model(cfg, device="cuda", seed=0)
+    opt = AdamW(lr=3e-3)
+    batch = torch.as_tensor(SyntheticText(cfg.vocab_size, 128, 4).batch(0),
+                            device="cuda")
+    return model, opt, model.params, opt.init(model.params), batch
+
+
+def train_gemm_shapes(cfg, tokens):
+    """(m, k, n) of every GEMM the emulated train step can offload: the
+    forward (tokens, k, n) of each projection, MLP and head (k, n), and
+    per forward site its two cotangents, dW (n, tokens, k) and dX
+    (tokens, n, k)."""
+    kn = serve_gemm_shapes(cfg) + [(cfg.d_model, cfg.vocab_size)]
+    return sorted({shape for k, n in kn for shape in
+                   ((tokens, k, n), (n, tokens, k), (tokens, n, k))})
+
+
+def phase_k1_train_shapes(errs, shapes, s=TRAIN_SPLITS):
+    """K1 bitwise against its plain version, through the k-major entry
+    the main paths call, at every train-step GEMM shape."""
+    from repro_torch.core.ozaki import slice_matrix
+    from repro_torch.kernels import ops, tile_model
+
+    gen = np.random.default_rng(7)
+    saved = dict(ops.LAUNCHES)
+    for m, k, n in shapes:
+        a = torch.from_numpy(gen.standard_normal((m, k), np.float32)).cuda()
+        b = torch.from_numpy(gen.standard_normal((k, n), np.float32)).cuda()
+        bk = tile_model.select_tiles(m, k, n, s).block_k
+        a_sl, _ = slice_matrix(a, s, axis=1)
+        b_t, _ = slice_matrix(b.mT, s, axis=1)
+        check("split_gemm", ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk),
+              ops.split_gemm_kmajor_plain(a_sl, b_t, s, block_k=bk), errs,
+              (m, k, n, s))
+        del a, b, a_sl, b_t
+    torch.cuda.synchronize()
+    ops.LAUNCHES.update(saved)
+    print(f"[train] K1 bitwise equal to its plain version (k-major entry) "
+          f"at s={s} at the {len(shapes)} train-step GEMM shapes {shapes}")
+
+
+class _K1Shapes:
+    """Records the (m, k, n) of every K1 launch while active."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.seen = ops, set()
+
+    def __enter__(self):
+        launch = self.launch = self.ops._launch_k1
+
+        def recorded(a_sl, b_sl_t, m, k, n, *rest):
+            self.seen.add((m, k, n))
+            return launch(a_sl, b_sl_t, m, k, n, *rest)
+
+        self.ops._launch_k1 = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._launch_k1 = self.launch
+
+
+def phase_train_grads(model, opt, params, state, batch, policy):
+    """Every backward GEMM's wiring and scale on the card: the gradient
+    at the parameters after one native step, emulated against native,
+    leaf by leaf.  Returns the worst leaf's relative difference."""
+    from repro_torch.core import offload
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint
+
+    saved = dict(ops.LAUNCHES)
+    params, _, _ = train.build_train_step(model, opt)(params, state, batch)
+    native = checkpoint.tree_flatten(
+        train.loss_and_grads(model, params, batch)[1])
+    emul = checkpoint.tree_flatten(
+        offload(train.loss_and_grads, policy)(model, params, batch)[1])
+    torch.cuda.synchronize()
+    ops.LAUNCHES.update(saved)
+    def paths(node, prefix):
+        if isinstance(node, dict):
+            return {k: paths(v, f"{prefix}{k}.") for k, v in node.items()}
+        return prefix[:-1]
+
+    names = checkpoint.tree_flatten(paths(params, ""))
+    rel = {name: float((e - n).abs().max() / n.abs().max())
+           for name, e, n in zip(names, emul, native)}
+    worst = max(rel, key=rel.get)
+    print(f"[train] step-2 gradient, {policy.backend} against native, per "
+          f"leaf max|diff|/max|native|: {rel}; worst {worst} "
+          f"{rel[worst]:.3e} (bound {TRAIN_GRAD_BOUND})")
+    if not all(np.isfinite(list(rel.values()))) \
+            or rel[worst] > TRAIN_GRAD_BOUND:
+        fail(f"emulated train-step gradient differs from native: {worst} "
+             f"{rel[worst]} > {TRAIN_GRAD_BOUND}")
+    return rel[worst]
+
+
+def _median_after_first(ms):
+    return float(np.median(ms[1:])) if len(ms) > 1 else float(ms[0])
+
+
+def phase_train(errs, **overrides):
+    """SmolLM-360M trained at full width through ``launch.train.main``,
+    natively and through pallas_int8_6 (K1 in every forward and
+    backward GEMM of the step), then killed and resumed on the card;
+    returns K1's launches in the emulated run.  ``overrides`` (config
+    fields) shrink the model for a rehearsal; the smoke runs none."""
+    import shutil
+
+    from repro_torch.core import PrecisionPolicy, offload
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    tokens = 4 * 128
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    spec = f"pallas_int8_{TRAIN_SPLITS}"
+    policy = PrecisionPolicy(backend=spec, default_splits=TRAIN_SPLITS)
+    model, opt, params, state, batch = _train_setup(overrides)
+    cfg = model.cfg
+    step = offload(train.build_train_step(model, opt), policy)
+    sites = step.sites(params, state, batch)
+    on = [site for site in sites if site.offloaded]
+    fwd = [site for site in on
+           if site.name.startswith("scan0/") or site.name == "dot0"]
+    per_step = sum(site.batch * site.mult for site in on)
+    print(f"[train] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.num_params():,} float32 parameters; "
+          f"{tokens} tokens a step; {len(sites)} sites, {len(on)} offloaded "
+          f"({sum(s.mult for s in fwd)} forward and "
+          f"{per_step - sum(s.mult for s in fwd)} backward GEMMs a step "
+          f"through K1)")
+    held = train_gemm_shapes(cfg, tokens)
+    offloaded = sorted({(site.m, site.k, site.n) for site in on})
+    if not set(offloaded) <= set(held):
+        fail(f"train-step shapes {sorted(set(offloaded) - set(held))} are "
+             "not among the shapes K1 is held at")
+    phase_k1_train_shapes(errs, held)
+    phase_train_grads(model, opt, params, state, batch, policy)
+    del step, state, params, model
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for label, backend in (("native", ""), (spec, spec)):
+        report = {}
+        torch.cuda.reset_peak_memory_stats()
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        with _K1Shapes() as launched:
+            t0 = time.perf_counter()
+            losses = train.main(train_argv(
+                TRAIN_STEPS, os.path.join(TRAIN_DIR, label), backend,
+                overrides), device="cuda", report=report)
+            torch.cuda.synchronize()
+        runs[label] = dict(
+            losses=losses, launches=dict(ops.LAUNCHES),
+            shapes=launched.seen, step_ms=report["step_ms"],
+            wall=time.perf_counter() - t0,
+            peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        shutil.rmtree(os.path.join(TRAIN_DIR, label), ignore_errors=True)
+        print(f"[train] {label}: losses {losses}; step ms {report['step_ms']}"
+              f" (median after the first "
+              f"{_median_after_first(report['step_ms']):.1f}); peak "
+              f"memory {runs[label]['peak']:.2f} GiB; main() "
+              f"{runs[label]['wall']:.1f} s", flush=True)
+    native, emul = runs["native"]["losses"], runs[spec]["losses"]
+    for label, losses in (("native", native), (spec, emul)):
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            fail(f"{label} train losses {losses}")
+        if not losses[-1] < losses[0]:
+            fail(f"{label} train loss does not fall: {losses}")
+    rel = [abs(e - n) / abs(n) for e, n in zip(emul, native)]
+    print(f"[train] per-step |emulated - native| / native loss: {rel} "
+          f"(bound {TRAIN_LOSS_BOUND})")
+    if max(rel) > TRAIN_LOSS_BOUND:
+        fail(f"emulated train losses {emul} differ from native {native} "
+             f"by more than {TRAIN_LOSS_BOUND}")
+    launches = runs[spec]["launches"]
+    want = {"split_gemm": TRAIN_STEPS * per_step, "split_gemm_fused": 0,
+            "split_gemm_v1": 0, "gather_pairs_kmajor": 0}
+    print(f"[train] K1 launches {launches['split_gemm']}, predicted "
+          f"{want['split_gemm']} ({TRAIN_STEPS} steps x {per_step} from the "
+          f"site report); shapes launched {sorted(runs[spec]['shapes'])}")
+    if launches != want or runs["native"]["launches"]["split_gemm"]:
+        fail(f"train launch counts {launches} (native run "
+             f"{runs['native']['launches']}) != predicted {want}")
+    if not runs[spec]["shapes"] <= set(held):
+        fail(f"K1 launched at {sorted(runs[spec]['shapes'] - set(held))}, "
+             "shapes it was not held at")
+
+    phase_train_resume(spec, overrides)
+    phase_train_profile(spec, policy, overrides)
+    return launches
+
+
+def phase_train_resume(spec, overrides):
+    """Kill and resume on the card: 2 steps into A; 1 step into B, then
+    B resumed to 2.  The two step-2 checkpoints must be the same bytes."""
+    import shutil
+
+    from repro_torch.launch import train
+
+    dir_a = os.path.join(TRAIN_DIR, "resume_a")
+    dir_b = os.path.join(TRAIN_DIR, "resume_b")
+    t0 = time.perf_counter()
+    train.main(train_argv(2, dir_a, spec, overrides), device="cuda")
+    train.main(train_argv(1, dir_b, spec, overrides), device="cuda")
+    resumed = train.main(train_argv(2, dir_b, spec, overrides),
+                         device="cuda")
+    name = "step_00000002.npz"
+    with open(os.path.join(dir_a, name), "rb") as fa, \
+            open(os.path.join(dir_b, name), "rb") as fb:
+        a, b = fa.read(), fb.read()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if len(resumed) != 1 or a != b:
+        fail(f"kill-and-resume on the card: {name} differs "
+             f"({len(a)} and {len(b)} bytes, {len(resumed)} resumed steps)")
+    print(f"[train] kill-and-resume under {spec}: 2 steps == 1 + resumed 1, "
+          f"{name} byte-identical ({len(a):,} bytes; "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase_train_profile(spec, policy, overrides):
+    """One timed and one profiled step of each kind: the device's busy
+    time and idle share, K1's device time and launches, the host's
+    time in ``ozaki_matmul``, and the step's peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import offload
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    model, opt, params, state, batch = _train_setup(overrides)
+    native = train.build_train_step(model, opt)
+    saved = dict(ops.LAUNCHES)
+    host = {"s": 0.0, "calls": 0}
+    real = ops.ozaki_matmul
+
+    def timed_ozaki(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        host["s"] += time.perf_counter() - t0
+        host["calls"] += 1
+        return out
+
+    for label, fn in (("native", native), (spec, offload(native, policy))):
+        fn(params, state, batch)   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.ozaki_matmul = timed_ozaki
+        try:
+            t0 = time.perf_counter()
+            fn(params, state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ops.ozaki_matmul = real
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(params, state, batch)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        line = (f"[train-profile] {label} step: wall {wall * 1e3:.1f} ms "
+                f"(unprofiled), peak memory {peak:.2f} GiB")
+        if label != "native":
+            line += (f", host time in ozaki_matmul {host['s'] * 1e3:.1f} ms "
+                     f"over {host['calls']} calls "
+                     f"({host['s'] / max(host['calls'], 1) * 1e3:.3f} ms "
+                     "each)")
+        print(line)
+        print(f"[train-profile] {label} step profiled: wall {pwall:.3f} s; "
+              "its top kernels:")
+        got = _device_summary(prof, pwall, "split_gemm_kernel",
+                              "train-profile")
+        if got is not None:
+            print(f"[train-profile] {label}: device busy {got['busy']:.3f} "
+                  f"s, idle share {got['idle']:.3f}; K1 "
+                  f"{got['kern'] * 1e3:.1f} ms over {got['calls']} launches "
+                  f"({got['kern'] / got['busy']:.3f} of the busy time)")
+    ops.LAUNCHES.update(saved)
 
 
 def bound(ops_count, nbytes):
@@ -1006,9 +1330,13 @@ def k1_timed_shapes():
     GEMMs (m a full 2 x 256 wave, every (k, n) of SmolLM-360M) at s=6."""
     from repro_torch.configs import get_config
 
-    kn = serve_gemm_shapes(get_config("smollm_360m"))
+    cfg = get_config("smollm_360m")
+    kn = serve_gemm_shapes(cfg)
+    train = [shape for shape in train_gemm_shapes(cfg, 512)
+             if shape[0] != 512 or shape[1:] not in kn]
     return ([((256, 256, nn), s) for nn in (256, 4096) for s in SPLITS]
-            + [((512, k, n), 6) for k, n in kn])
+            + [((512, k, n), 6) for k, n in kn]
+            + [(shape, TRAIN_SPLITS) for shape in train])
 
 
 def k1_plans_sweep():
@@ -1257,12 +1585,15 @@ def main():
     torch.cuda.empty_cache()
     phase_lm_ladder()
     torch.cuda.empty_cache()
-    # Launch counts per kernel: the main paths' runs (MuST and serve)
-    # and K3's A/B path, each read with the counters zeroed before it.
+    train_launches = phase_train(errs)
+    torch.cuda.empty_cache()
+    # Launch counts per kernel: the main paths' runs (MuST, serve and
+    # train) and K3's A/B path, each read with the counters zeroed
+    # before it.
     total = {key: launches[key] + serve_launches[key] + v1_launches[key]
-             for key in launches}
+             + train_launches[key] for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
-          f"v1 A/B {v1_launches}")
+          f"train {train_launches}, v1 A/B {v1_launches}")
     rows = phase_k1_timings(errs, total) + phase_timings(errs, total)
     print(json.dumps({"kernels": rows}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

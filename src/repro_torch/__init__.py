@@ -17,7 +17,13 @@ Package map:
   * ``repro_torch.models``  — the decoder-only LM and its serving
     programs;
   * ``repro_torch.serve``   — the continuous-batching engine (paged or
-    dense KV cache, chunked prefill, fifo/edf admission).
+    dense KV cache, chunked prefill, fifo/edf admission);
+  * ``repro_torch.train``   — synthetic data, AdamW and npz checkpoints
+    (the reference's file format);
+  * ``repro_torch.launch``  — the trainer, ``python -m
+    repro_torch.launch.train``;
+  * ``repro_torch.tune``    — the per-step INT8 GEMM count (plans are
+    still to port).
 """
 
 __version__ = "0.1.0"

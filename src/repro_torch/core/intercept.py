@@ -32,9 +32,28 @@ dtype gate (floating or complex) and ``min_dim`` gate, honours
 native), and unmatched override keys are handled per
 ``policy.on_unmatched_site``.
 
-Each offloaded site runs under a :class:`torch.autograd.Function` whose
-backward computes ``dA = g @ B^T`` and ``dB = A^T @ g`` through the same
-backend, as the reference's ``custom_vjp`` does.
+Backward GEMMs.  A gradient taken *inside* ``fn`` (``torch.autograd.grad``
+in a train step, as the reference traces ``value_and_grad`` into its
+jaxpr) makes each cotangent product a site of its own, with the
+reference's names: a scope's forward products in reverse order, each
+contributing first its rhs cotangent ``(g^T @ lhs)^T`` as the site
+(n, m, k) and then its lhs cotangent ``g @ rhs^T`` as (m, n, k), an
+operand that needs no gradient contributing none (lhs and rhs are the
+``dot_general``'s, so an einsum's in ``jnp.einsum``'s order); ``batch``
+and ``mult`` are the forward site's.  The top level's cotangents continue
+its ``dot`` counter (a head ``dot0`` gives ``dot1``, ``dot2``); a
+``scan{i}`` body's are named in a new scan scope numbered by the
+parent's flow counter (``scan1/dot0`` ..), the forward dot ``j`` of
+``D`` giving ``scan1/dot{2(D-1-j)}`` and ``scan1/dot{2(D-1-j)+1}``.
+Each passes the gates on its own name (dtype, ``min_dim``,
+``site_splits``, ``site_backends`` with ``dgemm`` demotion,
+``on_unmatched_site``) and keys its own engine state; a forward site
+gated out by dtype or size still yields its two records, offloaded
+False, and keeps torch's native gradient.  :func:`site_report` lists
+them too.  A gradient taken *after* ``fn`` returned runs both
+cotangents through the forward site's engine and split count, as the
+reference's ``custom_vjp`` does.  The records assume one gradient pass
+per call of ``fn`` over products that all reach the loss.
 
 Not ported yet: ``cond``/``while``/``shard_map`` scopes, ``plan=``,
 ``persist_dir`` and ``on_site_event`` (ROADMAP).
@@ -126,6 +145,8 @@ class _MatmulDims:
     ``(B, M, K)`` / ``(B, K, N)`` operands and ``unpack`` restores
     ``torch.matmul``'s output layout from ``(B, M, N)``.
     """
+
+    swap = False   # the operands are packed in their own order
 
     def __init__(self, lhs_shape, rhs_shape):
         lhs_shape, rhs_shape = tuple(lhs_shape), tuple(rhs_shape)
@@ -334,12 +355,24 @@ def _stack(outs):
     return type(first)(_stack(list(parts)) for parts in zip(*outs))
 
 
-def _slice(xs, i):
+def _steps(xs, n):
+    """The ``n`` per-step slices of ``xs`` along its leading axis.
+
+    A tensor that takes a gradient is unbound once, so its backward
+    stacks the steps' gradients in one go (a slice per step would add
+    ``n`` zero-padded full-size gradients); any other is indexed per
+    step, so its slices stay plain views that a body may write into.
+    """
     if isinstance(xs, torch.Tensor):
-        return xs[i]
+        if xs.requires_grad and torch.is_grad_enabled():
+            return list(torch.unbind(xs))
+        return [xs[i] for i in range(n)]
     if isinstance(xs, dict):
-        return {key: _slice(val, i) for key, val in xs.items()}
-    return type(xs)(_slice(x, i) for x in xs)
+        cols = {key: _steps(val, n) for key, val in xs.items()}
+        return [{key: col[i] for key, col in cols.items()}
+                for i in range(n)]
+    cols = [_steps(x, n) for x in xs]
+    return [type(xs)(col[i] for col in cols) for i in range(n)]
 
 
 def _length(xs) -> int:
@@ -372,11 +405,11 @@ def scan(body, carry, xs):
         mode.scopes.append(scope)
     ys = []
     try:
-        for i in range(n):
+        for i, x in enumerate(_steps(xs, n)):
             if scope is not None:
                 scope.dots = scope.flows = 0
                 scope.record = scope.record and i == 0
-            carry, y = body(carry, _slice(xs, i))
+            carry, y = body(carry, x)
             ys.append(y)
     finally:
         if scope is not None:
@@ -504,27 +537,79 @@ def _batched(engine: GemmBackend, site: Site):
     return run
 
 
+def _native(a3, b3, out_dtype):
+    """A product that stays native (``out_dtype`` is its operands')."""
+    return torch.matmul(a3, b3)
+
+
+class _Dims:
+    """The extents and operand shapes of one backward product."""
+
+    def __init__(self, M, K, N, B, lhs_shape, rhs_shape):
+        self.M, self.K, self.N, self.B = M, K, N, B
+        self.lhs_shape, self.rhs_shape = tuple(lhs_shape), tuple(rhs_shape)
+
+
+class _Product:
+    """A forward product that takes a gradient: what its backward sites
+    are made of, and which of its operands need a cotangent."""
+
+    def __init__(self, dims, out_shape, dtype, mult, needs):
+        self.dims, self.out_shape = dims, tuple(out_shape)
+        self.dtype, self.mult = dtype, mult
+        self.needs_lhs, self.needs_rhs = needs
+
+    def cotangent(self, which: str) -> _Dims:
+        """The rhs cotangent ``(g^T @ lhs)^T`` is the site (n, m, k),
+        the lhs cotangent ``g @ rhs^T`` the site (m, n, k)."""
+        d = self.dims
+        if which == "rhs":
+            return _Dims(d.N, d.M, d.K, d.B, self.out_shape, d.lhs_shape)
+        return _Dims(d.M, d.N, d.K, d.B, self.out_shape, d.rhs_shape)
+
+
 class _SiteMatmul(torch.autograd.Function):
-    """Backend-routed product with the emulated backward."""
+    """Backend-routed product with the emulated backward.
+
+    A gradient taken while ``fn`` runs (``torch.autograd.grad`` inside
+    the offloaded function, as a train step takes it) computes each
+    cotangent as a site of its own (:meth:`_OffloadMode.backward_sites`:
+    its own name, gates, split count, backend and engine state); the
+    rhs cotangent as ``(g^T @ lhs)^T``, the reference's orientation.  A
+    gradient taken after ``fn`` returned runs both cotangents through
+    the forward site's own engine and split count, as the reference's
+    ``custom_vjp`` does.
+    """
 
     @staticmethod
-    def forward(ctx, a3, b3, run, out_dtype):
-        ctx.run = run
+    def forward(ctx, a3, b3, run, out_dtype, mode, key):
+        ctx.run, ctx.mode, ctx.key = run, mode, key
         ctx.save_for_backward(a3, b3)
         return run(a3, b3, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         a3, b3 = ctx.saved_tensors
+        need_l, need_r = ctx.needs_input_grad[:2]
         dl = dr = None
-        # A gradient taken while an offload mode is active must not
-        # count the backward's own products as new sites.
+        # The backward's own products are never caught as new sites.
         with torch._C.DisableTorchFunction():
-            if ctx.needs_input_grad[0]:
-                dl = ctx.run(g, b3.transpose(1, 2), a3.dtype)
-            if ctx.needs_input_grad[1]:
-                dr = ctx.run(a3.transpose(1, 2), g, b3.dtype)
-        return dl, dr, None, None
+            mode = ctx.mode
+            if mode.running:
+                prefix, j = ctx.key
+                sites = mode.backward_sites(prefix)
+                if need_r:
+                    dr = mode.run_site(sites[(j, "rhs")], g.transpose(1, 2),
+                                       a3, b3.dtype).transpose(1, 2)
+                if need_l:
+                    dl = mode.run_site(sites[(j, "lhs")], g,
+                                       b3.transpose(1, 2), a3.dtype)
+            else:
+                if need_l:
+                    dl = ctx.run(g, b3.transpose(1, 2), a3.dtype)
+                if need_r:
+                    dr = ctx.run(a3.transpose(1, 2), g, b3.dtype)
+        return dl, dr, None, None, None, None
 
 
 class _OffloadMode(TorchFunctionMode):
@@ -537,16 +622,101 @@ class _OffloadMode(TorchFunctionMode):
         self.execute = execute
         self.sites: List[Site] = []
         self.scopes = [_Scope()]
+        self.running = False
+        # Per forward scope prefix: its products that take a gradient
+        # (by dot index), the backward scope their cotangents are named
+        # in, and those cotangents' sites keyed (dot index, operand).
+        self.products: Dict[str, List[_Product | None]] = {}
+        self.backward_scopes: Dict[str, _Scope] = {"": self.scopes[0]}
+        self.backward: Dict[str, Dict[tuple, Site]] = {}
 
     def run(self, fn, args, kwargs):
         """``fn(*args, **kwargs)`` under this mode, as :func:`scan`'s
         innermost scope owner."""
         _ACTIVE.modes.append(self)
+        self.running = True
         try:
             with self:
                 return fn(*args, **kwargs)
         finally:
+            self.running = False
             _ACTIVE.modes.pop()
+
+    def _note_product(self, prefix, j, dims, out_shape, dtype, mult, needs):
+        """Record forward dot ``j`` of scope ``prefix`` as taking a
+        gradient (an operand needs one on some iteration)."""
+        found = self.products.setdefault(prefix, [])
+        found.extend([None] * (j + 1 - len(found)))
+        if found[j] is None:
+            found[j] = _Product(dims, out_shape, dtype, mult, needs)
+        else:
+            found[j].needs_lhs |= needs[0]
+            found[j].needs_rhs |= needs[1]
+
+    def _backward_scope(self, prefix: str) -> _Scope:
+        """The scope the cotangents of forward scope ``prefix`` are named
+        in: the top level for the top level, else a new scan scope of
+        the parent's backward scope, numbered by its flow counter."""
+        scope = self.backward_scopes.get(prefix)
+        if scope is None:
+            parts = prefix.split("/")[:-1]
+            parent = self._backward_scope(
+                "/".join(parts[:-1]) + "/" if len(parts) > 1 else "")
+            scope = _Scope(f"{parent.prefix}scan{parent.flows}/")
+            parent.flows += 1
+            self.backward_scopes[prefix] = scope
+        return scope
+
+    def backward_sites(self, prefix: str) -> Dict[tuple, Site]:
+        """The cotangent sites of forward scope ``prefix``, made and
+        recorded when its backward first runs.
+
+        The reference's names for a ``value_and_grad`` program: the
+        forward products in reverse order, each contributing its rhs
+        cotangent (n, m, k) and then its lhs cotangent (m, n, k) where
+        that operand needs a gradient, numbered on from the backward
+        scope's dot counter (the top level's continues after its
+        forward dots).  Each goes through the same gates as any site.
+        """
+        found = self.backward.get(prefix)
+        if found is not None:
+            return found
+        scope = self._backward_scope(prefix)
+        found = {}
+        products = self.products.get(prefix, [])
+        for j in reversed(range(len(products))):
+            prod = products[j]
+            if prod is None:
+                continue
+            for which, needed in (("rhs", prod.needs_rhs),
+                                  ("lhs", prod.needs_lhs)):
+                if not needed:
+                    continue
+                site = _classify(prod.cotangent(which), prod.dtype,
+                                 self.policy,
+                                 f"{scope.prefix}dot{scope.dots}",
+                                 prod.mult)
+                scope.dots += 1
+                self.sites.append(site)
+                found[(j, which)] = site
+        self.backward[prefix] = found
+        return found
+
+    def run_site(self, site: Site, a3, b3, out_dtype):
+        """One batched product through ``site``'s engine, or natively."""
+        if site.offloaded:
+            return _batched(self.engine_for(site), site)(a3, b3, out_dtype)
+        return _native(a3, b3, out_dtype)
+
+    def _names_cotangents_of(self, prefix: str):
+        """A gradient hook on a product that runs natively: its
+        cotangents stay torch's own, but a backward inside ``fn`` still
+        makes (and records) their sites."""
+        def hook(grad):
+            if self.running:
+                with torch._C.DisableTorchFunction():
+                    self.backward_sites(prefix)
+        return hook
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -558,17 +728,36 @@ class _OffloadMode(TorchFunctionMode):
                 else _EinsumDims(call.equation, lhs.shape, rhs.shape))
         dtype = torch.promote_types(lhs.dtype, rhs.dtype)
         scope = self.scopes[-1]
-        site = _classify(dims, dtype, self.policy,
-                         f"{scope.prefix}dot{scope.dots}", scope.mult)
+        j = scope.dots
+        site = _classify(dims, dtype, self.policy, f"{scope.prefix}dot{j}",
+                         scope.mult)
         scope.dots += 1
         if scope.record:
             self.sites.append(site)
-        if not (self.execute and site.offloaded):
-            return func(*args, **kwargs)
-        run = _batched(self.engine_for(site), site)
-        a3, b3 = dims.pack(lhs, rhs)
-        y3 = _SiteMatmul.apply(a3, b3, run, dtype)
-        return call.finish(dims.unpack(y3))
+        grad = torch.is_grad_enabled()
+        needs = (grad and lhs.requires_grad, grad and rhs.requires_grad)
+        # In the packed operands' order, which the cotangent sites and
+        # _SiteMatmul's needs_input_grad follow.
+        if dims.swap:
+            needs = needs[::-1]
+        # A site demoted to dgemm may have cotangents that are not.
+        routed = self.execute and (site.offloaded or (
+            any(needs) and site.backend == "dgemm"))
+        if routed:
+            run = (_batched(self.engine_for(site), site) if site.offloaded
+                   else _native)
+            a3, b3 = dims.pack(lhs, rhs)
+            y = dims.unpack(_SiteMatmul.apply(a3, b3, run, dtype, self,
+                                              (scope.prefix, j)))
+            out = call.finish(y)
+        else:
+            out = y = func(*args, **kwargs)
+            if any(needs):
+                y.register_hook(self._names_cotangents_of(scope.prefix))
+        if any(needs):
+            self._note_product(scope.prefix, j, dims, y.shape, dtype,
+                               scope.mult, needs)
+        return out
 
 
 def offload(fn, policy: PrecisionPolicy | None = None):

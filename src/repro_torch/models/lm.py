@@ -10,10 +10,11 @@ first, as the reference's pure functions do, so
 ``offload(model.prefill_chunk_paged, policy)`` routes its GEMMs
 exactly where the reference's transform routes them.
 
-Programs: :meth:`Model.apply` (full-context logits), and the serving
-programs :meth:`~Model.init_cache`, :meth:`~Model.prefill`,
-:meth:`~Model.decode_step`, :meth:`~Model.prefill_chunk` (dense cache)
-and :meth:`~Model.init_paged_cache`, :meth:`~Model.prefill_chunk_paged`,
+Programs: :meth:`Model.apply` (full-context logits), :meth:`Model.loss`
+(training), and the serving programs :meth:`~Model.init_cache`,
+:meth:`~Model.prefill`, :meth:`~Model.decode_step`,
+:meth:`~Model.prefill_chunk` (dense cache) and
+:meth:`~Model.init_paged_cache`, :meth:`~Model.prefill_chunk_paged`,
 :meth:`~Model.decode_step_paged` (block-table cache), plus
 :meth:`~Model.greedy`.  Each runs its blocks through
 :func:`repro_torch.core.intercept.scan`, so the block GEMMs are the
@@ -36,8 +37,19 @@ float32 (their cosines and sines from the C library's ``cosf`` and
 ``sinf``, which is what the reference's XLA CPU build computes),
 attention scores, softmax and the SwiGLU gate in float32 (the module's
 ``ISLAND_DTYPE``; a probe may raise it to float64 to see the GEMMs'
-own error in a float64 model).  Not ported: tensor parallelism
-(``tp_axis``) and ``loss`` (training).
+own error in a float64 model).
+
+:meth:`Model.loss` is the mean causal cross-entropy in at-least-f32, as
+the reference's, and is differentiable through :meth:`Model.apply`:
+give it a parameter dict whose tensors require gradients (the train
+step makes such leaves; :attr:`Model.params` are frozen).  The
+backward pass is deterministic on the card: the embedding gather is
+``F.embedding`` (its CUDA backward sums each row's gradients in a
+fixed order, where ``weight[tokens]``'s backward adds them atomically),
+grouped-query heads are repeated by ``expand`` (whose backward is a
+sum, where ``repeat_interleave``'s is an atomic index add), and the
+softmaxes stop the gradient at their max, as ``jax.nn`` does.  Not
+ported: tensor parallelism (``tp_axis``).
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ import ctypes.util
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..configs import LMConfig
@@ -147,9 +160,17 @@ def _rope(x, cos, sin):
 
 
 def _softmax(x):
-    """``jax.nn.softmax`` over the last axis, spelled out."""
-    e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True))
+    """``jax.nn.softmax`` over the last axis, spelled out (no gradient
+    through the max, as there)."""
+    e = torch.exp(x - torch.amax(x, dim=-1, keepdim=True).detach())
     return e / torch.sum(e, dim=-1, keepdim=True)
+
+
+def _log_softmax(x):
+    """``jax.nn.log_softmax`` over the last axis, spelled out."""
+    shifted = x - torch.amax(x, dim=-1, keepdim=True).detach()
+    return shifted - torch.log(torch.sum(torch.exp(shifted), dim=-1,
+                                         keepdim=True))
 
 
 def _sdpa(q, k, v, mask):
@@ -300,9 +321,14 @@ class Model(nn.Module):
 
     @staticmethod
     def _repeat_kv(kv, num_heads):
-        """(B, S, KV, d) -> (B, S, H, d) for grouped-query attention."""
-        rep = num_heads // kv.shape[2]
-        return torch.repeat_interleave(kv, rep, dim=2) if rep > 1 else kv
+        """(B, S, KV, d) -> (B, S, H, d) for grouped-query attention
+        (query head h reads kv head h // rep, as ``jnp.repeat``)."""
+        B, S, KV, d = kv.shape
+        rep = num_heads // KV
+        if rep == 1:
+            return kv
+        return kv[:, :, :, None, :].expand(B, S, KV, rep, d).reshape(
+            B, S, KV * rep, d)
 
     def _head(self, params, x):
         """Final norm + LM head on (..., d) activations."""
@@ -316,7 +342,8 @@ class Model(nn.Module):
                              self.cfg.rope_theta)
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens.to(torch.long)].to(self.dtype)
+        return F.embedding(tokens.to(torch.long),
+                           params["embed"]).to(self.dtype)
 
     # -- full-context forward ----------------------------------------
 
@@ -341,6 +368,17 @@ class Model(nn.Module):
 
         x, _ = scan(block, x, params["blocks"])
         return self._head(params, x)
+
+    def loss(self, params, tokens):
+        """Mean causal cross-entropy over ``tokens`` (B, T+1), computed
+        in at-least-f32 (f64 for an f64 model)."""
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        logits = self.apply(params, inputs)
+        logits = logits.to(torch.promote_types(logits.dtype,
+                                               torch.float32))
+        logp = _log_softmax(logits)
+        nll = -torch.gather(logp, -1, targets[..., None].to(torch.long))
+        return torch.mean(nll)
 
     # -- KV-cache programs (serving) ---------------------------------
 

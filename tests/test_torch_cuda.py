@@ -103,6 +103,54 @@ def test_k1_bitwise_under_every_plan(m, k, n, num_splits):
                                        plan=plan), want), plan
 
 
+# The train step's backward GEMMs at SmolLM-360M's width (512 tokens):
+# dW (n, 512, k), whose k-tile is the token axis, and dX (512, n, k),
+# with the head's (49152, 512, 960) and (512, 49152, 960).
+K1_TRAIN_SHAPES = [(960, 512, 960), (320, 512, 960), (2560, 512, 960),
+                   (960, 512, 2560), (512, 320, 960), (49152, 512, 960),
+                   (512, 49152, 960)]
+
+
+@pytest.mark.parametrize("m,k,n", K1_TRAIN_SHAPES)
+def test_k1_bitwise_at_the_train_backward_shapes(m, k, n):
+    a, b = _operands(m, k, n, 17, torch.float32)
+    s = 6
+    bk = tile_model.select_tiles(m, k, n, s).block_k
+    a_sl, _ = slice_matrix(a, s, axis=1)
+    b_t, _ = slice_matrix(b.mT, s, axis=1)
+    got = ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk)
+    assert _bitwise(got, ops.split_gemm_kmajor_plain(a_sl, b_t, s,
+                                                     block_k=bk))
+
+
+def test_emulated_train_step_is_deterministic_on_card():
+    # Two runs of one emulated step (SmolLM-360M's width and vocabulary,
+    # two layers) from the same state give the same bits: the card
+    # computes nothing in a run-dependent order.
+    from repro_torch.configs import get_config
+    from repro_torch.core import PrecisionPolicy, offload
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import Model
+    from repro_torch.train import AdamW, SyntheticText
+    from repro_torch.train.checkpoint import tree_flatten
+
+    cfg = get_config("smollm_360m").replace(num_layers=2)
+    model = Model(cfg, device="cuda", seed=0)
+    params = model.params
+    opt = AdamW(lr=3e-3)
+    batch = torch.as_tensor(SyntheticText(cfg.vocab_size, 128, 4).batch(0),
+                            device="cuda")
+    step = offload(build_train_step(model, opt), PrecisionPolicy(
+        backend="pallas_int8_6"))
+    state = opt.init(params)
+    # The first step from a zero head moves it; the second depends on
+    # every gradient.
+    params, state, _ = step(params, state, batch)
+    runs = [tree_flatten(step(params, state, batch)) for _ in range(2)]
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+
+
 def test_k1_reads_each_calls_operands():
     # The launcher encodes a tensor map once per shape and gives each
     # call's copy that call's address: alternate two operand sets of

@@ -46,7 +46,8 @@ def test_import_graph_has_no_jax_or_reference():
         f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels, "
         "repro_torch.apps, repro_torch.configs, repro_torch.models, "
-        "repro_torch.serve\n"
+        "repro_torch.serve, repro_torch.train, repro_torch.launch.train, "
+        "repro_torch.tune\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, "
         "run_name='not_main')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -174,15 +174,28 @@ class TestOffloadNumerics:
         assert torch.equal(offload(lambda a, b: a @ b, pol)(a, b), a @ b)
 
     def test_gradient_inside_offload_adds_no_sites(self):
-        a = torch.from_numpy(_arr((32, 32), 19)).requires_grad_()
+        # A gradient taken inside fn adds no sites of its own making:
+        # only the reference's cotangent sites (dot1, dot2 of jax.grad
+        # inside the traced function); the products the backward runs
+        # are never caught as new forward sites.
+        a_np = _arr((32, 32), 19)
+        a = torch.from_numpy(a_np).requires_grad_()
 
         def f(a):
             y = (a @ a).sum()
             (g,) = torch.autograd.grad(y, a)
             return g
 
-        pol = PrecisionPolicy(min_dim=16, backend="fp64_int8_5")
-        assert [s.name for s in offload(f, pol).sites(a)] == ["dot0"]
+        def f_jax(a):
+            return jax.grad(lambda a: jnp.sum(a @ a))(a)
+
+        p_ref, pol = _policies(min_dim=16, backend="fp64_int8_5")
+        want = [_record(s) for s in offload_ref(f_jax, p_ref).sites(
+            jnp.asarray(a_np))]
+        assert [s.name for s in offload(f, pol).sites(a)] == \
+            ["dot0", "dot1", "dot2"]
+        assert [_record(s)[3:] for s in offload(f, pol).sites(a)] == \
+            [w[3:] for w in want]
         offload(f, pol)(a)
 
 
@@ -327,3 +340,196 @@ class TestEinsumSites:
                         pol)(a)
         # One operand is not a matmul: no site, runs natively.
         assert site_report(lambda x: torch.einsum("ij->j", x), pol)(a) == []
+
+
+def _train_step_pair():
+    """The reference's and the port's train step on the tiny LM (2
+    layers, d 64, d_ff 192, vocab 160), the same weights, state and
+    batch for each."""
+    from repro.configs import get_config as get_config_ref
+    from repro.launch.train import build_train_step as build_ref
+    from repro.models import Model as ModelRef
+    from repro.train import AdamW as AdamWRef
+    from repro.train import SyntheticText
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import Model, params_from_reference
+    from repro_torch.train import AdamW
+
+    over = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                head_dim=16, d_ff=192, vocab_size=160)
+    ref = ModelRef(get_config_ref("tiny").replace(**over))
+    params = ref.init_params(jax.random.PRNGKey(0))
+    params["lm_head"] = jnp.asarray(np.random.default_rng(1).standard_normal(
+        params["lm_head"].shape) * 0.1, jnp.float32)
+    batch = SyntheticText(160, 24, 4).batch(0)
+    port = Model(get_config("tiny").replace(**over), device="cpu")
+    p_port = params_from_reference(
+        jax.tree_util.tree_map(np.asarray, params), "cpu")
+    return ((build_ref(ref, AdamWRef()),
+             (params, AdamWRef().init(params), jnp.asarray(batch))),
+            (build_train_step(port, AdamW()),
+             (p_port, AdamW().init(p_port), torch.from_numpy(batch))))
+
+
+def _geometry(site):
+    return (site.name, site.m, site.k, site.n, site.batch, site.mult,
+            site.offloaded, site.splits, site.eligible, site.reason,
+            site.backend)
+
+
+class TestBackwardSites:
+    """A gradient taken inside the offloaded function: each cotangent is
+    a site of its own, named, ordered and shaped as the reference's
+    ``value_and_grad`` jaxpr names them."""
+
+    @pytest.fixture(scope="class")
+    def steps(self):
+        return _train_step_pair()
+
+    @pytest.mark.parametrize("kw", [
+        dict(backend="fp64_int8_4", min_dim=16),
+        dict(backend="fp64_int8_4", min_dim=128),
+        dict(backend="pallas_int8", min_dim=16,
+             site_splits={"scan1/dot3": 9, "dot2": 3},
+             site_backends={"scan0/dot6": "dgemm", "scan1/dot0": "dgemm"}),
+    ])
+    def test_train_step_sites_match_reference(self, steps, kw):
+        (ref_step, ref_args), (port_step, port_args) = steps
+        p_ref, p_port = _policies(**kw)
+        want = [_geometry(s) for s in offload_ref(ref_step, p_ref).sites(
+            *ref_args)]
+        got = [_geometry(s) for s in offload(port_step, p_port).sites(
+            *port_args)]
+        assert got == want
+        assert len(got) == 30
+        assert [g[0] for g in got[9:12]] == ["dot0", "dot1", "dot2"]
+        # Down (96, 192, 64) is forward dot 8 of 9: its rhs cotangent is
+        # scan1/dot0 as (n, m, k), its lhs cotangent scan1/dot1 (m, n, k).
+        assert got[12][:4] == ("scan1/dot0", 64, 96, 192)
+        assert got[13][:4] == ("scan1/dot1", 96, 64, 192)
+
+    def test_backward_overrides_change_only_their_site(self, steps):
+        _, (port_step, port_args) = steps
+        base = offload(port_step, PrecisionPolicy(
+            backend="pallas_int8", min_dim=16)).sites(*port_args)
+        pol = PrecisionPolicy(backend="pallas_int8", min_dim=16,
+                              site_splits={"scan1/dot3": 9},
+                              on_unmatched_site="raise")
+        tuned = offload(port_step, pol).sites(*port_args)
+        changed = [(a.name, a.splits, b.splits) for a, b in zip(base, tuned)
+                   if _geometry(a) != _geometry(b)]
+        assert changed == [("scan1/dot3", 6, 9)]
+        # The forward site scan0/dot6 demoted to dgemm: its cotangents
+        # stay offloaded, and the step still runs and trains.
+        pol = PrecisionPolicy(backend="fp64_int8_4", min_dim=16,
+                              site_backends={"scan0/dot6": "dgemm"},
+                              on_unmatched_site="raise")
+        wrapped = offload(port_step, pol)
+        sites = {s.name: s for s in wrapped.sites(*port_args)}
+        assert not sites["scan0/dot6"].offloaded
+        assert sites["scan1/dot4"].offloaded and sites["scan1/dot5"].offloaded
+        _, _, loss = wrapped(*port_args)
+        assert torch.isfinite(loss)
+
+    def test_adaptive_keeps_separate_states(self, steps):
+        _, (port_step, port_args) = steps
+        wrapped = offload(port_step, PrecisionPolicy(
+            backend="adaptive:1e-5", min_dim=16))
+        _, _, loss = wrapped(*port_args)
+        assert torch.isfinite(loss)
+        states = wrapped.backend.gemm.sites
+        names = {s.name for s in wrapped.sites(*port_args) if s.offloaded}
+        assert set(states) == names
+        assert {"scan0/dot8", "scan1/dot0", "scan1/dot1", "dot0", "dot1",
+                "dot2"} <= set(states)
+        # Each backward site was probed on its own operands and runs once
+        # per layer, like its forward site.
+        assert states["scan1/dot0"].calls == states["scan0/dot8"].calls == 2
+        assert states["dot1"].calls == 1
+
+    @pytest.mark.parametrize("min_dim", [16, 128])
+    def test_count_int8_gemms_matches_reference(self, steps, min_dim):
+        from repro.tune.solve import count_int8_gemms as count_ref
+        from repro_torch.tune import count_int8_gemms
+
+        (ref_step, ref_args), (port_step, port_args) = steps
+        p_ref, p_port = _policies(backend="fp64_int8_4", min_dim=min_dim)
+        want = count_ref(offload_ref(ref_step, p_ref).sites(*ref_args))
+        got = count_int8_gemms(offload(port_step, p_port).sites(*port_args))
+        assert got == want
+        # Per layer 7 projection sites and 2 attention einsums (batch
+        # 16), plus the head; each forward product has two cotangents;
+        # s = 6 (the policy's default) is 21 pair GEMMs.
+        assert got == (21 * 3 * (2 * (7 + 2 * 16) + 1)
+                       if min_dim == 16 else 0)
+
+    def test_gated_out_sites_keep_the_native_gradient(self):
+        # Below min_dim nothing is offloaded: the cotangent records
+        # exist (offloaded=False) and the gradient is torch's own, bit
+        # for bit.
+        a = torch.from_numpy(_arr((32, 48), 50))
+        b = torch.from_numpy(_arr((48, 40), 51))
+
+        def f(a, b):
+            a = a.clone().requires_grad_()
+            b = b.clone().requires_grad_()
+            return torch.autograd.grad(torch.tanh(a @ b).sum(), (a, b))
+
+        pol = PrecisionPolicy(min_dim=64, backend="fp64_int8_5")
+        sites = offload(f, pol).sites(a, b)
+        assert [(s.name, s.m, s.k, s.n, s.offloaded) for s in sites] == [
+            ("dot0", 32, 48, 40, False), ("dot1", 40, 32, 48, False),
+            ("dot2", 32, 40, 48, False)]
+        for got, want in zip(offload(f, pol)(a, b), f(a, b)):
+            assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("frozen", [0, 1])
+    def test_swapped_einsum_with_a_frozen_operand(self, frozen):
+        # 'ij,kj->ki' packs its operands swapped (W first): the one
+        # cotangent taken is named and shaped as the reference's, and
+        # the gradient equals the native one.
+        x_np, w_np = _arr((32, 48), 54), _arr((40, 48), 55)
+
+        def f(x, w):
+            ops = [x.clone(), w.clone()]
+            ops[1 - frozen].requires_grad_()
+            y = torch.einsum("ij,kj->ki", *ops)
+            (g,) = torch.autograd.grad(torch.tanh(y).sum(), ops[1 - frozen])
+            return g
+
+        def f_jax(x, w):
+            loss = lambda x, w: jnp.sum(jnp.tanh(jnp.einsum("ij,kj->ki",
+                                                            x, w)))
+            return jax.grad(loss, argnums=1 - frozen)(x, w)
+
+        p_ref, pol = _policies(min_dim=16, backend="fp64_int8_5")
+        want = [_record(s) for s in offload_ref(f_jax, p_ref).sites(
+            jnp.asarray(x_np), jnp.asarray(w_np))]
+        args = torch.from_numpy(x_np), torch.from_numpy(w_np)
+        got = [_record(s) for s in offload(f, pol).sites(*args)]
+        assert [r[0] for r in got] == ["dot0", "dot1"]
+        assert got == want
+        got = offload(f, pol)(*args)
+        assert same_bits(offload_ref(f_jax, p_ref)(
+            jnp.asarray(x_np), jnp.asarray(w_np)), got)
+        # Against the native gradient (entries up to 7): the forward
+        # product at s = 5 is off by up to 5.1e-7 here, through tanh'.
+        torch.testing.assert_close(got, f(*args), rtol=0, atol=2e-6)
+
+    @pytest.mark.parametrize("s", [3, 6, 9])
+    def test_rhs_cotangent_orientations_bitwise(self, s):
+        # (g^T @ lhs)^T, the reference's orientation and the port's,
+        # equals lhs^T @ g to the bit, in both accumulators and through
+        # the kernel family (plain K1 here).
+        from repro_torch.core import get_backend
+        from repro_torch.core import ozaki_matmul
+
+        x = torch.from_numpy(_arr((256, 192), 52, np.float32))
+        g = torch.from_numpy(_arr((256, 160), 53, np.float32))
+        for acc in ("df32", "f64"):
+            assert torch.equal(
+                ozaki_matmul(g.T, x, s, accumulator=acc).T,
+                ozaki_matmul(x.T, g, s, accumulator=acc))
+        kernel = get_backend(f"pallas_int8_{s}")
+        assert torch.equal(kernel(g.T, x).T, kernel(x.T, g))
