@@ -40,16 +40,34 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    3..9, once as the model computes (softmax and SwiGLU gate in
    float32, as the reference) and once with those float32 stages raised
    to float64, where the ladder shows the emulated GEMMs' own error;
-7. times K1 at the MuST shapes (256, 256, N), N = 256 and 4096, for
-   s = 3, 6, 9 and at SmolLM-360M's prefill GEMMs (m = 512) for s = 6,
+7. times, after phases 8 and 9, K1 at the MuST shapes (256, 256, N), N =
+   256 and 4096, for s = 3, 6, 9 and at SmolLM-360M's prefill and
+   train-step GEMMs (m = 512) for s = 6,
    and K2 and K3 at (256, 256, 4096) for s = 3, 6, 9: each with its
    bound, the FP64 ``torch.matmul`` it stands in for, the pair products
-   as ``torch._int_mm``, the profiler's device time, and its plain
-   version at s = 6; K3's kernel alone on gathered copies beside its
+   as ``torch._int_mm``, its device time with launches queued back to
+   back (``device_ms``), and its plain version at s = 6; K3's kernel alone on gathered copies beside its
    gather;
-8. prints one JSON line describing every ported kernel (K1 once per
-   timed shape), the card line, and last ``{"ok": true, "device":
-   {...}}``.
+8. trains it: SmolLM-360M at full width through ``launch.train.main``,
+   4 steps natively and 4 through ``pallas_int8_6``, the gradient
+   emulated against native at each step, a kill-and-resume, one
+   profiled step of each;
+9. tunes it: calibrates the same train step through ``python -m
+   repro_torch.tune``'s ``main`` (probe ``pallas_int8_6``, 2 batches),
+   prints the solved split counts, holds K1 bitwise at every ((m, k,
+   n), s) the plan launches, trains 4 steps under ``--plan`` (losses
+   and gradients against native, K1's launches by split count against
+   the site report, K1's device time per step beside the uniform
+   run's) and serves phase 6's requests through ``Engine(plan=...)``;
+10. prints one JSON line describing every ported kernel (K1 once per
+   timed shape, the plan's three most-launched pairs among them), the
+   card line, and last ``{"ok": true, "device": {...}}``.
+
+Before the kernels it holds the seeded parameters (the reference's
+``jax.random`` draws, ``repro_torch.models.prng``) card against CPU
+bitwise and times the full-width init, and ``_pow2_scale`` card against
+CPU bitwise at about a million amax values across the float64 exponent
+range.
 
 Every phase that fails raises, so the script exits non-zero and prints
 no result line.
@@ -132,24 +150,33 @@ def timed(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, name, reps=20):
-    """Mean device milliseconds per launch of the kernels whose name
-    contains ``name`` when ``fn`` runs, from the profiler's trace: the
-    kernel alone, whatever the host's time to issue it."""
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms(fn, reps=20):
+    """Mean device milliseconds per call of ``fn`` with its launches
+    queued back to back, whatever the host's time to issue them: a sleep
+    kernel holds the stream while the host issues ``reps`` calls between
+    two events, and the reading counts only if the first event was still
+    pending when the host was done.  The sleep grows until it is; None
+    (and a line saying so) when it never is, as for an ``fn`` that waits
+    on the card."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 22
+    for _ in range(6):
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(reps):
             fn()
+        stop.record()
+        ahead = not start.query()
         torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if name in e.key]
-    count = sum(e.count for e in found)
-    if not count:
-        return None
-    return sum(e.self_device_time_total for e in found) / 1e3 / count
+        if ahead:
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+    print(f"[device-time] the host never issued {reps} calls ahead of the "
+          f"card (last sleep {cycles // 4} cycles)", flush=True)
+    return None
 
 
 def fmt_ms(ms):
@@ -851,6 +878,15 @@ TRAIN_LOSS_BOUND = 1e-3
 # Measured 1.6e-5 at full width (blocks.attn_norm, NVIDIA H100 80GB
 # HBM3); a backward GEMM off in scale or wiring is off by O(1).
 TRAIN_GRAD_BOUND = 1e-4
+# Per leaf, the gradient under a solved plan against the same step with
+# its GEMM sites in float64, at every step.  The plan solves for
+# float32-level accuracy (a budget of 32 float32 ulps), so it is held to
+# what float32 itself reaches there: native float32's own gradient is
+# up to 6.4e-4 off the float64-GEMM step (step 3, blocks.wq); the plan's
+# worst reading is 1.4e-4 (step 4, final_norm), both at full width on
+# an NVIDIA H100 80GB HBM3 at 700 W.  A GEMM off in scale or wiring is
+# off by O(1).
+TUNE_GRAD_BOUND = 1e-3
 TRAIN_DIR = os.path.join(ROOT, "build", "train_smoke")
 
 
@@ -893,43 +929,51 @@ def train_gemm_shapes(cfg, tokens):
                    ((tokens, k, n), (n, tokens, k), (tokens, n, k))})
 
 
-def phase_k1_train_shapes(errs, shapes, s=TRAIN_SPLITS):
+def phase_k1_train_shapes(errs, shapes, s=TRAIN_SPLITS, tag="train"):
     """K1 bitwise against its plain version, through the k-major entry
-    the main paths call, at every train-step GEMM shape."""
+    the main paths call, at every shape of ``shapes``: (m, k, n) at
+    ``s`` splits, or ((m, k, n), s) pairs (a plan's)."""
     from repro_torch.core.ozaki import slice_matrix
     from repro_torch.kernels import ops, tile_model
 
+    pairs = [shape if isinstance(shape[0], tuple) else (shape, s)
+             for shape in shapes]
     gen = np.random.default_rng(7)
     saved = dict(ops.LAUNCHES)
-    for m, k, n in shapes:
+    for (m, k, n), splits in pairs:
         a = torch.from_numpy(gen.standard_normal((m, k), np.float32)).cuda()
         b = torch.from_numpy(gen.standard_normal((k, n), np.float32)).cuda()
-        bk = tile_model.select_tiles(m, k, n, s).block_k
-        a_sl, _ = slice_matrix(a, s, axis=1)
-        b_t, _ = slice_matrix(b.mT, s, axis=1)
-        check("split_gemm", ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk),
-              ops.split_gemm_kmajor_plain(a_sl, b_t, s, block_k=bk), errs,
-              (m, k, n, s))
+        bk = tile_model.select_tiles(m, k, n, splits).block_k
+        a_sl, _ = slice_matrix(a, splits, axis=1)
+        b_t, _ = slice_matrix(b.mT, splits, axis=1)
+        check("split_gemm",
+              ops.split_gemm_kmajor(a_sl, b_t, splits, block_k=bk),
+              ops.split_gemm_kmajor_plain(a_sl, b_t, splits, block_k=bk),
+              errs, (m, k, n, splits))
         del a, b, a_sl, b_t
     torch.cuda.synchronize()
     ops.LAUNCHES.update(saved)
-    print(f"[train] K1 bitwise equal to its plain version (k-major entry) "
-          f"at s={s} at the {len(shapes)} train-step GEMM shapes {shapes}")
+    print(f"[{tag}] K1 bitwise equal to its plain version (k-major entry) "
+          f"at the {len(pairs)} ((m, k, n), s) pairs {pairs}")
 
 
 class _K1Shapes:
-    """Records the (m, k, n) of every K1 launch while active."""
+    """Records the (m, k, n) of every K1 launch while active, and the
+    launches by split count."""
 
     def __init__(self):
+        from collections import Counter
+
         from repro_torch.kernels import ops
-        self.ops, self.seen = ops, set()
+        self.ops, self.seen, self.by_splits = ops, set(), Counter()
 
     def __enter__(self):
         launch = self.launch = self.ops._launch_k1
 
-        def recorded(a_sl, b_sl_t, m, k, n, *rest):
+        def recorded(a_sl, b_sl_t, m, k, n, num_splits, *rest):
             self.seen.add((m, k, n))
-            return launch(a_sl, b_sl_t, m, k, n, *rest)
+            self.by_splits[num_splits] += 1
+            return launch(a_sl, b_sl_t, m, k, n, num_splits, *rest)
 
         self.ops._launch_k1 = recorded
         return self
@@ -938,40 +982,100 @@ class _K1Shapes:
         self.ops._launch_k1 = self.launch
 
 
-def phase_train_grads(model, opt, params, state, batch, policy):
-    """Every backward GEMM's wiring and scale on the card: the gradient
-    at the parameters after one native step, emulated against native,
-    leaf by leaf.  Returns the worst leaf's relative difference."""
+def _train_batch(cfg, step):
+    from repro_torch.train import SyntheticText
+
+    return torch.as_tensor(SyntheticText(cfg.vocab_size, 128, 4).batch(step),
+                           device="cuda")
+
+
+def _f64_gemm_policy(min_dim):
+    """A policy whose GEMM sites run in float64 and round to their
+    dtype: the train step as the emulation approximates it (an FP64
+    product, rounded), the reference the gradient is held against."""
+    from repro_torch.core import GemmBackend, PrecisionPolicy
+    from repro_torch.core.backends import _FACTORIES, register_backend
+
+    class F64Gemm(GemmBackend):
+        def matmul(self, a, b, *, out_dtype=None, num_splits=None,
+                   site="default"):
+            out = out_dtype or torch.promote_types(a.dtype, b.dtype)
+            return torch.matmul(a.double(), b.double()).to(out)
+
+    if "f64gemm" not in _FACTORIES:
+        register_backend("f64gemm", lambda spec, policy, splits, arg:
+                         F64Gemm(spec, policy))
+    return PrecisionPolicy(backend="f64gemm", min_dim=min_dim)
+
+
+def phase_train_grads(model, opt, params, state, policy, tag="train",
+                      f64_bound=TRAIN_GRAD_BOUND):
+    """Every backward GEMM's wiring and scale on the card: at each step
+    of the native run's ``TRAIN_STEPS`` steps, the gradient emulated
+    under ``policy`` leaf by leaf (max|diff| / max|reference|; 0 where
+    both are exactly zero, as step 1's blocks are under the zero head)
+    against native float32 and against the same step with its GEMM
+    sites in float64 (``_f64_gemm_policy``), and native float32 against
+    the latter.  Held: the step-2 gradient against native within
+    ``TRAIN_GRAD_BOUND``, and every step's against the float64-GEMM
+    step within ``f64_bound``.  Native float32 is not held: from step 3
+    on its
+    own GEMM rounding, amplified by training, exceeds the bound (PERF.md,
+    ROADMAP section 3, F3).  Returns the worst leaf per step and
+    comparison."""
     from repro_torch.core import offload
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.train import checkpoint
 
-    saved = dict(ops.LAUNCHES)
-    params, _, _ = train.build_train_step(model, opt)(params, state, batch)
-    native = checkpoint.tree_flatten(
-        train.loss_and_grads(model, params, batch)[1])
-    emul = checkpoint.tree_flatten(
-        offload(train.loss_and_grads, policy)(model, params, batch)[1])
-    torch.cuda.synchronize()
-    ops.LAUNCHES.update(saved)
     def paths(node, prefix):
         if isinstance(node, dict):
             return {k: paths(v, f"{prefix}{k}.") for k, v in node.items()}
         return prefix[:-1]
 
+    def worst(got, want):
+        rel = {}
+        for name, g, w in zip(names, got, want):
+            top, diff = float(w.abs().max()), float((g - w).abs().max())
+            rel[name] = diff / top if top else (0.0 if diff == 0 else np.inf)
+        leaf = max(rel, key=rel.get)
+        return leaf, rel[leaf]
+
     names = checkpoint.tree_flatten(paths(params, ""))
-    rel = {name: float((e - n).abs().max() / n.abs().max())
-           for name, e, n in zip(names, emul, native)}
-    worst = max(rel, key=rel.get)
-    print(f"[train] step-2 gradient, {policy.backend} against native, per "
-          f"leaf max|diff|/max|native|: {rel}; worst {worst} "
-          f"{rel[worst]:.3e} (bound {TRAIN_GRAD_BOUND})")
-    if not all(np.isfinite(list(rel.values()))) \
-            or rel[worst] > TRAIN_GRAD_BOUND:
-        fail(f"emulated train-step gradient differs from native: {worst} "
-             f"{rel[worst]} > {TRAIN_GRAD_BOUND}")
-    return rel[worst]
+    saved = dict(ops.LAUNCHES)
+    step_fn = train.build_train_step(model, opt)
+    emulated = offload(train.loss_and_grads, policy)
+    exact = offload(train.loss_and_grads, _f64_gemm_policy(policy.min_dim))
+    found = []
+    for step in range(TRAIN_STEPS):
+        batch = _train_batch(model.cfg, step)
+        grads = {label: checkpoint.tree_flatten(fn(model, params, batch)[1])
+                 for label, fn in (("native", train.loss_and_grads),
+                                   ("emul", emulated), ("f64", exact))}
+        got = {"emul-native": worst(grads["emul"], grads["native"]),
+               "emul-f64": worst(grads["emul"], grads["f64"]),
+               "native-f64": worst(grads["native"], grads["f64"])}
+        found.append({key: val[1] for key, val in got.items()})
+        print(f"[{tag}] step-{step + 1} gradient, worst leaf (max|diff| / "
+              f"max|reference|): {policy.backend} against native "
+              f"{got['emul-native'][0]} {got['emul-native'][1]:.3e}, "
+              f"against float64 GEMMs {got['emul-f64'][0]} "
+              f"{got['emul-f64'][1]:.3e}; native against float64 GEMMs "
+              f"{got['native-f64'][0]} {got['native-f64'][1]:.3e} (bounds "
+              f"{TRAIN_GRAD_BOUND} against native at step 2, {f64_bound} "
+              "against float64 GEMMs)", flush=True)
+        held = {"emul-f64": f64_bound}
+        if step == 1:
+            held["emul-native"] = TRAIN_GRAD_BOUND
+        for key, (leaf, rel) in got.items():
+            if not np.isfinite(rel) or rel > held.get(key, np.inf):
+                fail(f"train-step gradient at step {step + 1}, {key}: "
+                     f"{leaf} {rel} > {held.get(key)}")
+        del grads
+        params, state, _ = step_fn(params, state, batch)
+    torch.cuda.synchronize()
+    ops.LAUNCHES.update(saved)
+    return found
 
 
 def _median_after_first(ms):
@@ -1015,7 +1119,7 @@ def phase_train(errs, **overrides):
         fail(f"train-step shapes {sorted(set(offloaded) - set(held))} are "
              "not among the shapes K1 is held at")
     phase_k1_train_shapes(errs, held)
-    phase_train_grads(model, opt, params, state, batch, policy)
+    phase_train_grads(model, opt, params, state, policy)
     del step, state, params, model
     torch.cuda.empty_cache()
 
@@ -1068,8 +1172,10 @@ def phase_train(errs, **overrides):
              "shapes it was not held at")
 
     phase_train_resume(spec, overrides)
-    phase_train_profile(spec, policy, overrides)
-    return launches
+    k1_ms = phase_train_profile(spec, policy, overrides)
+    return launches, dict(native_losses=native, emulated_losses=emul,
+                          step_ms=_median_after_first(runs[spec]["step_ms"]),
+                          k1_ms=k1_ms)
 
 
 def phase_train_resume(spec, overrides):
@@ -1099,12 +1205,66 @@ def phase_train_resume(spec, overrides):
           f"{time.perf_counter() - t0:.1f} s)")
 
 
-def phase_train_profile(spec, policy, overrides):
-    """One timed and one profiled step of each kind: the device's busy
-    time and idle share, K1's device time and launches, the host's
-    time in ``ozaki_matmul``, and the step's peak memory."""
+def _profile_step(label, fn, args, tag="train-profile", host_time=False):
+    """One timed and one profiled call of a train step ``fn``: wall time,
+    peak memory (and, ``host_time``, the host's time in
+    ``ops.ozaki_matmul`` during the timed call), the device's busy time
+    and idle share, and K1's device time and launches; returns K1's
+    device ms (None without a trace)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ops
+
+    host = {"s": 0.0, "calls": 0}
+    real = ops.ozaki_matmul
+
+    def timed_ozaki(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        host["s"] += time.perf_counter() - t0
+        host["calls"] += 1
+        return out
+
+    fn(*args)   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if host_time:
+        ops.ozaki_matmul = timed_ozaki
+    try:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.ozaki_matmul = real
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    line = (f"[{tag}] {label} step: wall {wall * 1e3:.1f} ms "
+            f"(unprofiled), peak memory {peak:.2f} GiB")
+    if host["calls"]:
+        line += (f", host time in ozaki_matmul {host['s'] * 1e3:.1f} ms "
+                 f"over {host['calls']} calls "
+                 f"({host['s'] / host['calls'] * 1e3:.3f} ms each)")
+    print(line)
+    print(f"[{tag}] {label} step profiled: wall {pwall:.3f} s; its top "
+          "kernels:")
+    got = _device_summary(prof, pwall, "split_gemm_kernel", tag)
+    if got is None:
+        return None
+    print(f"[{tag}] {label}: device busy {got['busy']:.3f} s, idle share "
+          f"{got['idle']:.3f}; K1 {got['kern'] * 1e3:.1f} ms over "
+          f"{got['calls']} launches ({got['kern'] / got['busy']:.3f} of the "
+          "busy time)")
+    return got["kern"] * 1e3
+
+
+def phase_train_profile(spec, policy, overrides):
+    """One timed and one profiled step of each kind (``_profile_step``);
+    returns the emulated step's K1 device ms."""
     from repro_torch.core import offload
     from repro_torch.kernels import ops
     from repro_torch.launch import train
@@ -1112,52 +1272,274 @@ def phase_train_profile(spec, policy, overrides):
     model, opt, params, state, batch = _train_setup(overrides)
     native = train.build_train_step(model, opt)
     saved = dict(ops.LAUNCHES)
-    host = {"s": 0.0, "calls": 0}
-    real = ops.ozaki_matmul
-
-    def timed_ozaki(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = real(*args, **kwargs)
-        host["s"] += time.perf_counter() - t0
-        host["calls"] += 1
-        return out
-
-    for label, fn in (("native", native), (spec, offload(native, policy))):
-        fn(params, state, batch)   # warm
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.ozaki_matmul = timed_ozaki
-        try:
-            t0 = time.perf_counter()
-            fn(params, state, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            ops.ozaki_matmul = real
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn(params, state, batch)
-            torch.cuda.synchronize()
-            pwall = time.perf_counter() - t0
-        line = (f"[train-profile] {label} step: wall {wall * 1e3:.1f} ms "
-                f"(unprofiled), peak memory {peak:.2f} GiB")
-        if label != "native":
-            line += (f", host time in ozaki_matmul {host['s'] * 1e3:.1f} ms "
-                     f"over {host['calls']} calls "
-                     f"({host['s'] / max(host['calls'], 1) * 1e3:.3f} ms "
-                     "each)")
-        print(line)
-        print(f"[train-profile] {label} step profiled: wall {pwall:.3f} s; "
-              "its top kernels:")
-        got = _device_summary(prof, pwall, "split_gemm_kernel",
-                              "train-profile")
-        if got is not None:
-            print(f"[train-profile] {label}: device busy {got['busy']:.3f} "
-                  f"s, idle share {got['idle']:.3f}; K1 "
-                  f"{got['kern'] * 1e3:.1f} ms over {got['calls']} launches "
-                  f"({got['kern'] / got['busy']:.3f} of the busy time)")
+    args = (params, state, batch)
+    _profile_step("native", native, args)
+    k1_ms = _profile_step(spec, offload(native, policy), args,
+                          host_time=True)
     ops.LAUNCHES.update(saved)
+    return k1_ms
+
+
+TUNE_BATCHES = 2
+TUNE_DIR = os.path.join(ROOT, "build", "tune_smoke")
+
+
+def _histogram(plan):
+    from collections import Counter
+
+    return dict(sorted(Counter(site.splits for site in plan.sites
+                               if site.backend != "dgemm").items()))
+
+
+def phase_tune(errs, trained, **overrides):
+    """The precision-plan tuner on the card, at full width: calibrate
+    the SmolLM-360M train step through ``python -m repro_torch.tune``'s
+    ``main`` (probe ``pallas_int8_6``, ``TUNE_BATCHES`` batches, the
+    float32 reference its CLI measures against), hold K1 bitwise at
+    every ((m, k, n), s) the plan launches, train ``TRAIN_STEPS`` steps
+    under ``--plan`` through ``launch.train.main`` (losses against
+    ``trained``'s native run, gradients at each step against the
+    float64-GEMM step within ``TUNE_GRAD_BOUND`` and at step 2 against
+    native within ``TRAIN_GRAD_BOUND``, K1 launches by split count
+    against the site report, K1's device time in one profiled step
+    beside the uniform run's), then serve the serve
+    phase's requests through ``Engine(plan=...)``.  Returns K1's
+    launches on the path (the train and serve runs) and the plan's
+    ((m, k, n), s) pairs by launches per train step, most first.
+    ``overrides`` shrink the model for a rehearsal."""
+    import shutil
+    from collections import Counter
+
+    from repro_torch.core import offload
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.tune import Calibrator, PrecisionPlan, solve_plan
+    from repro_torch.tune import cli as tune_cli
+
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    plan_path = os.path.join(TUNE_DIR, "smollm_360m.json")
+    spec = f"pallas_int8_{TRAIN_SPLITS}"
+    t0 = time.perf_counter()
+    lines = tune_cli.main([
+        "--arch", "smollm_360m", "--target", "step", "--batches",
+        str(TUNE_BATCHES), "--seq-len", "128", "--global-batch", "4",
+        "--lr", "3e-3", "--seed", "0", "--backend", spec, "--device",
+        "cuda", "--plan", plan_path])
+    cal_s = time.perf_counter() - t0
+    plan = PrecisionPlan.load(plan_path)
+    print(f"[tune] {lines[-1]}")
+    print(f"[tune] calibration and solve {cal_s:.1f} s ({TUNE_BATCHES} "
+          f"batches, float32 reference); solved split counts "
+          f"{_histogram(plan)}; demoted {plan.demoted_sites()}; budget "
+          f"{plan.budget:.3e} met {plan.budget_met}", flush=True)
+    if not plan.budget_met:
+        fail(f"the solved plan misses its budget {plan.budget}")
+
+    model, opt, params, state, batch = _train_setup(overrides)
+    step = train.build_train_step(model, opt)
+    t0 = time.perf_counter()
+    cal = Calibrator(step, tune_cli.tune_policy(spec, 128),
+                     reference_dtype=torch.float64)
+    cal.run(params, state, batch)
+    plan64 = solve_plan(cal.result())
+    print(f"[tune] for the record, one batch against a float64 reference "
+          f"({time.perf_counter() - t0:.1f} s): solved split counts "
+          f"{_histogram(plan64)}, demoted {plan64.demoted_sites()}, "
+          f"budget met {plan64.budget_met}", flush=True)
+    del cal
+
+    planned = offload(step, plan=plan)
+    policy = planned.policy
+    sites = planned.sites(params, state, batch)
+    on = [site for site in sites if site.offloaded]
+    per_pair = Counter()
+    for site in on:
+        per_pair[((site.m, site.k, site.n), site.splits)] += (
+            site.batch * site.mult)
+    per_splits = Counter()
+    for (_, splits), count in per_pair.items():
+        per_splits[splits] += count
+    phase_k1_train_shapes(errs, sorted(per_pair), tag="tune")
+    phase_train_grads(model, opt, params, state, policy, tag="tune",
+                      f64_bound=TUNE_GRAD_BOUND)
+    k1_ms = _profile_step("plan", offload(step, policy), (params, state,
+                                                           batch),
+                          tag="tune-profile")
+    del step, state, params, model
+    torch.cuda.empty_cache()
+
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    report = {}
+    with _K1Shapes() as launched:
+        losses = train.main(train_argv(
+            TRAIN_STEPS, os.path.join(TUNE_DIR, "ckpt"), "", overrides)
+            + ["--plan", plan_path], device="cuda", report=report)
+        torch.cuda.synchronize()
+    train_launches = dict(ops.LAUNCHES)
+    shutil.rmtree(os.path.join(TUNE_DIR, "ckpt"), ignore_errors=True)
+    native = trained["native_losses"]
+    rel = [abs(e - n) / abs(n) for e, n in zip(losses, native)]
+    want = {splits: TRAIN_STEPS * count
+            for splits, count in sorted(per_splits.items())}
+    median = _median_after_first(report["step_ms"])
+    print(f"[tune] trained {TRAIN_STEPS} steps under the plan: losses "
+          f"{losses}; |plan - native| / native {rel} (bound "
+          f"{TRAIN_LOSS_BOUND}); step ms {report['step_ms']} (median after "
+          f"the first {median:.1f}, uniform {spec} "
+          f"{trained['step_ms']:.1f})")
+    print(f"[tune] K1 launches by split count {dict(launched.by_splits)}, "
+          f"predicted {want} from the site report; INT8 GEMMs per step "
+          f"{report['int8_gemms_per_step']}; K1 device time per step "
+          f"{fmt_ms(k1_ms)} under the plan, {fmt_ms(trained['k1_ms'])} "
+          f"uniform {spec}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or max(rel) > TRAIN_LOSS_BOUND:
+        fail(f"losses under the plan {losses} against native {native}")
+    if dict(launched.by_splits) != want or \
+            train_launches["split_gemm"] != sum(want.values()):
+        fail(f"K1 launches under the plan {dict(launched.by_splits)} "
+             f"({train_launches}) != predicted {want}")
+    shapes = {pair[0] for pair in per_pair}
+    if not launched.seen <= shapes:
+        fail(f"K1 launched at {sorted(launched.seen - shapes)} under the "
+             "plan, shapes it was not held at")
+
+    serve_launches = phase_tune_serve(errs, plan, **overrides)
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    launches = {key: train_launches[key] + serve_launches[key]
+                for key in train_launches}
+    return launches, [pair for pair, _ in per_pair.most_common()]
+
+
+def phase_tune_serve(errs, plan, seed=3, n_requests=8,
+                     max_new=16, prompt_lengths=(128, 640), **overrides):
+    """The serve phase's requests through ``Engine(plan=plan)`` (subset
+    mode) beside uniform ``pallas_int8_6``: prefill tokens/s, K1's
+    launches against the site report, and every greedy stream equal to
+    the uniform run's.
+    K1 is held bitwise first at every ((m, k, n), s) the plan's prefill
+    waves give it."""
+    from collections import Counter
+
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Engine, Request
+
+    model = _smollm("float32", seed, **overrides)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(prompt_lengths[0], prompt_lengths[1] + 1,
+                           n_requests)
+    prompts = [rng.integers(1, model.cfg.vocab_size, int(n)).tolist()
+               for n in lengths]
+    engine_kw = dict(batch_slots=4, max_len=1024, block_size=16,
+                     chunk_tokens=256, chunk_token_budget=512)
+    uniform = PrecisionPolicy(backend="pallas_int8",
+                              default_splits=TRAIN_SPLITS)
+
+    def serve(some=prompts, new=max_new, **kw):
+        eng = Engine(model, model.params, **kw, **engine_kw)
+        rec = _timed_runner(eng.runner)
+        reqs = [Request(prompt=p, max_new_tokens=new) for p in some]
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        return eng, [r.out for r in reqs], rec
+
+    serve(prompts[:1], 2, plan=plan)   # warm
+    _, toks_uniform, rec_uniform = serve(policy=uniform)
+    waves = Counter(rec_uniform["waves"])
+    probe = Engine(model, model.params, plan=plan, **engine_kw)
+    wave_sites = {shape: [site for site in probe.prefill_sites(*shape)
+                          if site.offloaded] for shape in waves}
+    del probe
+    pairs = sorted({((site.m, site.k, site.n), site.splits)
+                    for found in wave_sites.values() for site in found})
+    phase_k1_train_shapes(errs, pairs, tag="tune-serve")
+    predicted = sum(sum(site.mult for site in wave_sites[shape]) * count
+                    for shape, count in waves.items())
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    _, toks_plan, rec = serve(plan=plan)
+    launches = dict(ops.LAUNCHES)
+    same = sum(a == b for a, b in zip(toks_uniform, toks_plan))
+    for label, r in (("uniform", rec_uniform), ("plan", rec)):
+        print(f"[tune-serve] {label}: prefill {r['prefill_tokens']} tokens "
+              f"in {len(r['waves'])} waves, {r['prefill_ms']:.1f} ms "
+              f"({r['prefill_tokens'] / (r['prefill_ms'] / 1e3):.1f} "
+              f"tok/s); decode {r['decode_tokens']} tokens, "
+              f"{r['decode_ms']:.1f} ms")
+    print(f"[tune-serve] K1 launches {launches['split_gemm']}, predicted "
+          f"{predicted} (waves {dict(waves)}); greedy streams equal to "
+          f"uniform pallas_int8_{TRAIN_SPLITS} for {same} of {n_requests} "
+          "requests")
+    if rec["waves"] != rec_uniform["waves"] or launches != {
+            "split_gemm": predicted, "split_gemm_fused": 0,
+            "split_gemm_v1": 0, "gather_pairs_kmajor": 0}:
+        fail(f"plan serve launches {launches} != predicted {predicted}")
+    if same != n_requests:
+        fail(f"greedy streams under the plan equal uniform "
+             f"pallas_int8_{TRAIN_SPLITS} for {same} of {n_requests} "
+             "requests, not all")
+    for out in toks_plan:
+        if len(out) != max_new or not all(0 <= t < model.cfg.vocab_size
+                                          for t in out):
+            fail(f"served tokens under the plan out of range: {out}")
+    del model
+    return launches
+
+
+def phase_init():
+    """Seeded parameters (``repro_torch.models.prng``) on the card against
+    the CPU, to the bit, for the ``tiny`` config at two seeds, and the
+    full-width SmolLM-360M init's time on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import checkpoint
+
+    cfg = get_config("tiny")
+    differ = 0
+    for seed in (0, 2 ** 31 + 5):
+        cpu = checkpoint.tree_flatten(Model(cfg, device="cpu",
+                                            seed=seed).params)
+        card = checkpoint.tree_flatten(Model(cfg, device="cuda",
+                                             seed=seed).params)
+        differ += sum(int((a.view(torch.int32) != b.cpu().view(
+            torch.int32)).sum()) for a, b in zip(cpu, card))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = Model(get_config("smollm_360m"), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"[init] tiny params (seeds 0, 2**31+5) card vs CPU: {differ} "
+          f"elements differ; full-width SmolLM-360M init on the card "
+          f"{init_s:.2f} s ({full.cfg.num_params():,} parameters)")
+    if differ:
+        fail(f"seeded parameters differ between the card and the CPU in "
+             f"{differ} elements")
+    del full
+
+
+def phase_pow2(n=1 << 20, seed=11):
+    """``_pow2_scale`` on the card against the CPU, to the bit, at ``n``
+    random float64 amax values spread over the whole exponent range
+    (subnormals included: a uniformly drawn biased exponent, 0 to 2046,
+    and random mantissa bits), as rows of one."""
+    from repro_torch.core.ozaki import _pow2_scale
+
+    gen = np.random.default_rng(seed)
+    bits = (gen.integers(0, 2047, n, dtype=np.int64) << 52) | \
+        gen.integers(0, 1 << 52, n, dtype=np.int64)
+    x = torch.from_numpy(bits.view(np.float64).reshape(-1, 1).copy())
+    on_card = _pow2_scale(x.cuda(), 1).cpu()
+    differ = int((on_card.view(torch.int64)
+                  != _pow2_scale(x, 1).view(torch.int64)).sum())
+    sub = int((x.abs() < torch.finfo(torch.float64).tiny).sum())
+    print(f"[kernels] _pow2_scale card vs CPU at {n} random amax values "
+          f"(exponents 2**-1074 to 2**1023, {sub} subnormal): {differ} "
+          "differ")
+    if differ:
+        fail(f"_pow2_scale differs between the card and the CPU at {differ} "
+             "inputs")
 
 
 def bound(ops_count, nbytes):
@@ -1169,9 +1551,9 @@ def bound(ops_count, nbytes):
                                  else "bytes")
 
 
-def phase_k1_timings(errs, launches):
+def phase_k1_timings(errs, launches, shapes):
     """K1 at ``k1_timed_shapes()``: event-timed through the k-major entry
-    the main paths call, the profiler's device time, its bound (int8 ops
+    the main paths call, its device time (``device_ms``), its bound (int8 ops
     2*m*n*k*P against bytes s*(m*k + k*n) + 8*m*n), the FP64
     torch.matmul it stands in for, the P pair products as torch._int_mm,
     and (s = 6) its plain version.  Returns its JSON rows."""
@@ -1181,7 +1563,7 @@ def phase_k1_timings(errs, launches):
     gen = np.random.default_rng(2)
     saved = dict(ops.LAUNCHES)
     rows = []
-    for (m, k, n), s in k1_timed_shapes():
+    for (m, k, n), s in shapes:
         a = torch.from_numpy(gen.standard_normal((m, k))).cuda()
         b = torch.from_numpy(gen.standard_normal((k, n))).cuda()
         pairs = num_pair_gemms(s)
@@ -1197,7 +1579,9 @@ def phase_k1_timings(errs, launches):
             return ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk)
 
         ms = timed(kernel, 50)
-        dev_ms = device_ms(kernel, "split_gemm_kernel")
+        dev_ms = device_ms(kernel)
+        if dev_ms is None:
+            fail(f"K1's device time at {(m, k, n, s)} is not in its trace")
         library_ms = timed(lambda: a @ b, 20)
         int_mm_ms = timed(lambda: [torch._int_mm(ia[i], ib[j])
                                    for i, j in zip(ii, jj)], 10)
@@ -1269,7 +1653,7 @@ def phase_timings(errs, launches, m=256, k=256, n=4096):
         ]
         for name, replaces, kernel, plain, nbytes in specs:
             ms = timed(kernel, 50)
-            dev_ms = device_ms(kernel, f"{name}_kernel")
+            dev_ms = device_ms(kernel)
             bound_ms, bound_by = bound(ops_count, nbytes)
             plain_ms = timed(plain, 5) if s == 6 else None
             print(f"[time] {name} at (m,k,n)=({m},{k},{n}) s={s}: "
@@ -1297,7 +1681,7 @@ def phase_timings(errs, launches, m=256, k=256, n=4096):
                                       pairs * layer + 4 * pairs + 8 * m * n)
         gather = lambda: ops.gather_pairs_kmajor(a_sl, b_sl, s)  # noqa: E731
         gather_ms = timed(gather, 50)
-        gather_dev = device_ms(gather, "gather_pairs_kernel")
+        gather_dev = device_ms(gather)
         gather_bound, _ = bound(0, pairs * layer + s * layer)
         print(f"[time] split_gemm_v1 at s={s}: kernel alone {alone_ms:.4f} "
               f"ms (bound {alone_bound:.4f} ms, {alone_by}), "
@@ -1342,7 +1726,7 @@ def k1_timed_shapes():
 def k1_plans_sweep():
     """--k1-plans: K1 under every plan ``tile_model.k1_plans`` gives at
     the timed shapes, each held bitwise against its plain version and
-    timed (CUDA events, and the profiler's device time)."""
+    timed (CUDA events, and ``device_ms``)."""
     from repro_torch.core.ozaki import slice_matrix
     from repro_torch.kernels import ops, tile_model
 
@@ -1370,7 +1754,7 @@ def k1_plans_sweep():
                 print(f"[k1-plans] {failed[-1]}", flush=True)
                 continue
             ms = timed(run, 30)
-            dev = device_ms(run, "split_gemm_kernel")
+            dev = device_ms(run)
             print(f"[k1-plans] ({m},{k},{n}) s={s} {plan_label(plan)}"
                   f"{' (rule)' if plan == rule else ''}: {ms:.4f} ms, "
                   f"device {fmt_ms(dev)}, {plan.ctas} CTAs", flush=True)
@@ -1574,7 +1958,9 @@ def main():
     t_start = time.perf_counter()
     phase_card()
     errs = {}
+    phase_init()
     checked_kn = phase_kernels_vs_plain(errs)
+    phase_pow2()
     phase_k1_plans(errs)
     phase_ladder()
     launches = phase_must()
@@ -1585,16 +1971,22 @@ def main():
     torch.cuda.empty_cache()
     phase_lm_ladder()
     torch.cuda.empty_cache()
-    train_launches = phase_train(errs)
+    train_launches, trained = phase_train(errs)
     torch.cuda.empty_cache()
-    # Launch counts per kernel: the main paths' runs (MuST, serve and
-    # train) and K3's A/B path, each read with the counters zeroed
-    # before it.
+    tune_launches, tune_pairs = phase_tune(errs, trained)
+    torch.cuda.empty_cache()
+    # Launch counts per kernel: the main paths' runs (MuST, serve, train
+    # and the tune phase's plan-driven train and serve) and K3's A/B
+    # path, each read with the counters zeroed before it.
     total = {key: launches[key] + serve_launches[key] + v1_launches[key]
-             + train_launches[key] for key in launches}
+             + train_launches[key] + tune_launches[key] for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
-          f"train {train_launches}, v1 A/B {v1_launches}")
-    rows = phase_k1_timings(errs, total) + phase_timings(errs, total)
+          f"train {train_launches}, tune {tune_launches}, v1 A/B "
+          f"{v1_launches}")
+    shapes = k1_timed_shapes()
+    shapes += [pair for pair in tune_pairs if pair not in shapes][:3]
+    rows = (phase_k1_timings(errs, total, shapes)
+            + phase_timings(errs, total))
     print(json.dumps({"kernels": rows}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -14,16 +14,16 @@ Package map:
   * ``repro_torch.apps``    — the MuST Green's-function contour study;
   * ``repro_torch.configs`` — the LM presets (``smollm_360m`` and the
     test sizes);
-  * ``repro_torch.models``  — the decoder-only LM and its serving
-    programs;
+  * ``repro_torch.models``  — the decoder-only LM, its serving programs
+    and the reference's seeded draws (``models.prng``);
   * ``repro_torch.serve``   — the continuous-batching engine (paged or
     dense KV cache, chunked prefill, fifo/edf admission);
   * ``repro_torch.train``   — synthetic data, AdamW and npz checkpoints
     (the reference's file format);
   * ``repro_torch.launch``  — the trainer, ``python -m
     repro_torch.launch.train``;
-  * ``repro_torch.tune``    — the per-step INT8 GEMM count (plans are
-    still to port).
+  * ``repro_torch.tune``    — precision plans: calibrate, solve, the
+    plan artifact, ``python -m repro_torch.tune``.
 """
 
 __version__ = "0.1.0"

@@ -52,10 +52,14 @@ gated out by dtype or size still yields its two records, offloaded
 False, and keeps torch's native gradient.  :func:`site_report` lists
 them too.  A gradient taken *after* ``fn`` returned runs both
 cotangents through the forward site's engine and split count, as the
-reference's ``custom_vjp`` does.  The records assume one gradient pass
-per call of ``fn`` over products that all reach the loss.
+reference's ``custom_vjp`` does.  Each gradient pass inside ``fn``
+(``torch.autograd.grad``, ``backward``) names its own cotangents, on
+from the counters the earlier passes left, as a second ``jax.grad``
+does; a product whose output does not reach the pass's outputs, or an
+operand whose gradient leads to none of its inputs, gets no cotangent
+site, as the reference's jaxpr has none.
 
-Not ported yet: ``cond``/``while``/``shard_map`` scopes, ``plan=``,
+Not ported yet: ``cond``/``while``/``shard_map`` scopes,
 ``persist_dir`` and ``on_site_event`` (ROADMAP).
 """
 
@@ -68,6 +72,7 @@ from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.graph import get_gradient_edge
 from torch.overrides import TorchFunctionMode
 
 from .backends import GemmBackend, get_backend
@@ -537,6 +542,46 @@ def _batched(engine: GemmBackend, site: Site):
     return run
 
 
+def _postorder(roots) -> list:
+    """The autograd nodes reachable from ``roots``, each after the
+    nodes it leads to (its ``next_functions``)."""
+    seen, order = set(), []
+    stack = [(node, False) for node in roots]
+    while stack:
+        node, done = stack.pop()
+        if done:
+            order.append(node)
+        elif node not in seen:
+            seen.add(node)
+            stack.append((node, True))
+            stack.extend((nxt, False) for nxt, _ in node.next_functions
+                         if nxt is not None and nxt not in seen)
+    return order
+
+
+#: The calls that start a gradient pass.
+_GRAD_ENTRIES = (torch.autograd.grad, torch.autograd.backward,
+                 torch.Tensor.backward)
+
+
+def _grad_targets(func, args, kwargs):
+    """(outputs, inputs) of a gradient call; inputs None for all leaves."""
+    def seq(x):
+        return None if x is None else (
+            [x] if isinstance(x, torch.Tensor) else list(x))
+
+    if func is torch.autograd.grad:
+        outputs = args[0] if args else kwargs["outputs"]
+        inputs = args[1] if len(args) > 1 else kwargs["inputs"]
+    elif func is torch.autograd.backward:
+        outputs = args[0] if args else kwargs["tensors"]
+        inputs = kwargs.get("inputs", args[5] if len(args) > 5 else None)
+    else:   # Tensor.backward(self, gradient, retain_graph, create_graph,
+        outputs = args[0]   # inputs)
+        inputs = kwargs.get("inputs", args[4] if len(args) > 4 else None)
+    return seq(outputs), seq(inputs)
+
+
 def _native(a3, b3, out_dtype):
     """A product that stays native (``out_dtype`` is its operands')."""
     return torch.matmul(a3, b3)
@@ -598,12 +643,15 @@ class _SiteMatmul(torch.autograd.Function):
             if mode.running:
                 prefix, j = ctx.key
                 sites = mode.backward_sites(prefix)
-                if need_r:
-                    dr = mode.run_site(sites[(j, "rhs")], g.transpose(1, 2),
-                                       a3, b3.dtype).transpose(1, 2)
-                if need_l:
-                    dl = mode.run_site(sites[(j, "lhs")], g,
-                                       b3.transpose(1, 2), a3.dtype)
+                # A cotangent the pass does not take has no site (its
+                # operand leads to none of the pass's inputs).
+                site_r, site_l = sites.get((j, "rhs")), sites.get((j, "lhs"))
+                if need_r and site_r is not None:
+                    dr = mode.run_site(site_r, g.transpose(1, 2), a3,
+                                       b3.dtype).transpose(1, 2)
+                if need_l and site_l is not None:
+                    dl = mode.run_site(site_l, g, b3.transpose(1, 2),
+                                       a3.dtype)
             else:
                 if need_l:
                     dl = ctx.run(g, b3.transpose(1, 2), a3.dtype)
@@ -615,11 +663,14 @@ class _SiteMatmul(torch.autograd.Function):
 class _OffloadMode(TorchFunctionMode):
     """Catches matmul calls, names them ``dot{i}``, routes the offloaded."""
 
-    def __init__(self, policy: PrecisionPolicy, engine_for, execute: bool):
+    def __init__(self, policy: PrecisionPolicy, engine_for, execute: bool,
+                 authoritative: bool = False):
         super().__init__()
         self.policy = policy
         self.engine_for = engine_for
         self.execute = execute
+        # The engine runs every eligible site, demoted ones too.
+        self.authoritative = authoritative
         self.sites: List[Site] = []
         self.scopes = [_Scope()]
         self.running = False
@@ -629,6 +680,12 @@ class _OffloadMode(TorchFunctionMode):
         self.products: Dict[str, List[_Product | None]] = {}
         self.backward_scopes: Dict[str, _Scope] = {"": self.scopes[0]}
         self.backward: Dict[str, Dict[tuple, Site]] = {}
+        # Per product key (scope prefix, dot index): the autograd nodes of
+        # each of its runs (output, packed lhs and rhs operand edges), and
+        # for the current gradient pass the (lhs, rhs) cotangents it
+        # takes, by product key (None: every product, forward needs).
+        self.nodes: Dict[tuple, list] = {}
+        self.pass_needs: Dict[tuple, tuple] | None = None
 
     def run(self, fn, args, kwargs):
         """``fn(*args, **kwargs)`` under this mode, as :func:`scan`'s
@@ -640,11 +697,47 @@ class _OffloadMode(TorchFunctionMode):
                 return fn(*args, **kwargs)
         finally:
             self.running = False
+            self.nodes.clear()   # the graph's nodes are not kept past fn
             _ACTIVE.modes.pop()
 
-    def _note_product(self, prefix, j, dims, out_shape, dtype, mult, needs):
+    def start_pass(self, outputs, inputs) -> None:
+        """A gradient pass inside ``fn`` begins (``torch.autograd.grad``
+        or ``backward``): name its cotangents afresh, as the reference's
+        next ``jax.grad`` does, for the products it reaches.
+
+        A product takes part when its output's node is reachable from
+        the pass's ``outputs``; an operand's cotangent is taken when its
+        gradient edge leads to one of ``inputs`` (to any leaf when
+        ``inputs`` is None), which is what autograd executes.
+        """
+        order = _postorder(t.grad_fn for t in outputs
+                           if t.grad_fn is not None)
+        reach = set(order)
+        if inputs is None:
+            useful = {n for n in order
+                      if type(n).__name__ == "AccumulateGrad"}
+        else:
+            useful = {get_gradient_edge(t).node for t in inputs}
+        for node in order:   # children first
+            if any(nxt in useful for nxt, _ in node.next_functions):
+                useful.add(node)
+        needs = {}
+        for key, runs in self.nodes.items():
+            for out, lhs, rhs in runs:
+                if out in reach:
+                    old = needs.get(key, (False, False))
+                    needs[key] = (old[0] or lhs in useful,
+                                  old[1] or rhs in useful)
+        self.pass_needs = needs
+        self.backward_scopes = {"": self.scopes[0]}
+        self.backward = {}
+
+    def _note_product(self, prefix, j, dims, out_shape, dtype, mult, needs,
+                      nodes):
         """Record forward dot ``j`` of scope ``prefix`` as taking a
-        gradient (an operand needs one on some iteration)."""
+        gradient (an operand needs one on some iteration), and this
+        run's autograd ``nodes``."""
+        self.nodes.setdefault((prefix, j), []).append(nodes)
         found = self.products.setdefault(prefix, [])
         found.extend([None] * (j + 1 - len(found)))
         if found[j] is None:
@@ -674,9 +767,10 @@ class _OffloadMode(TorchFunctionMode):
         The reference's names for a ``value_and_grad`` program: the
         forward products in reverse order, each contributing its rhs
         cotangent (n, m, k) and then its lhs cotangent (m, n, k) where
-        that operand needs a gradient, numbered on from the backward
-        scope's dot counter (the top level's continues after its
-        forward dots).  Each goes through the same gates as any site.
+        the pass takes it (:meth:`start_pass`), numbered on from the
+        backward scope's dot counter (the top level's continues after
+        its forward dots).  Each goes through the same gates as any
+        site.
         """
         found = self.backward.get(prefix)
         if found is not None:
@@ -688,8 +782,10 @@ class _OffloadMode(TorchFunctionMode):
             prod = products[j]
             if prod is None:
                 continue
-            for which, needed in (("rhs", prod.needs_rhs),
-                                  ("lhs", prod.needs_lhs)):
+            needs = ((prod.needs_lhs, prod.needs_rhs)
+                     if self.pass_needs is None
+                     else self.pass_needs.get((prefix, j), (False, False)))
+            for which, needed in (("rhs", needs[1]), ("lhs", needs[0])):
                 if not needed:
                     continue
                 site = _classify(prod.cotangent(which), prod.dtype,
@@ -702,9 +798,12 @@ class _OffloadMode(TorchFunctionMode):
         self.backward[prefix] = found
         return found
 
+    def _engine_runs(self, site: Site) -> bool:
+        return site.offloaded or (self.authoritative and site.eligible)
+
     def run_site(self, site: Site, a3, b3, out_dtype):
         """One batched product through ``site``'s engine, or natively."""
-        if site.offloaded:
+        if self._engine_runs(site):
             return _batched(self.engine_for(site), site)(a3, b3, out_dtype)
         return _native(a3, b3, out_dtype)
 
@@ -720,6 +819,9 @@ class _OffloadMode(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func in _GRAD_ENTRIES and self.running:
+            self.start_pass(*_grad_targets(func, args, kwargs))
+            return func(*args, **kwargs)
         call = _parse_call(func, args, kwargs)
         if call is None:
             return func(*args, **kwargs)
@@ -741,26 +843,35 @@ class _OffloadMode(TorchFunctionMode):
         if dims.swap:
             needs = needs[::-1]
         # A site demoted to dgemm may have cotangents that are not.
-        routed = self.execute and (site.offloaded or (
+        engine = self._engine_runs(site)
+        routed = self.execute and (engine or (
             any(needs) and site.backend == "dgemm"))
         if routed:
-            run = (_batched(self.engine_for(site), site) if site.offloaded
-                   else _native)
+            run = _batched(self.engine_for(site), site) if engine else _native
             a3, b3 = dims.pack(lhs, rhs)
-            y = dims.unpack(_SiteMatmul.apply(a3, b3, run, dtype, self,
-                                              (scope.prefix, j)))
+            y3 = _SiteMatmul.apply(a3, b3, run, dtype, self,
+                                   (scope.prefix, j))
+            node = y3.grad_fn
+            y = dims.unpack(y3)
             out = call.finish(y)
         else:
             out = y = func(*args, **kwargs)
+            node = y.grad_fn
             if any(needs):
                 y.register_hook(self._names_cotangents_of(scope.prefix))
         if any(needs):
+            edges = [get_gradient_edge(x).node if x.requires_grad else None
+                     for x in (lhs, rhs)]
+            if dims.swap:
+                edges = edges[::-1]
             self._note_product(scope.prefix, j, dims, y.shape, dtype,
-                               scope.mult, needs)
+                               scope.mult, needs, (node, *edges))
         return out
 
 
-def offload(fn, policy: PrecisionPolicy | None = None):
+def offload(fn, policy: PrecisionPolicy | None = None, *,
+            backend: GemmBackend | None = None, plan=None,
+            plan_match: str = "strict"):
     """Wrap ``fn`` so its large matmuls run through the policy backend.
 
     Every call runs ``fn`` eagerly under the interception mode.  Sites
@@ -770,25 +881,65 @@ def offload(fn, policy: PrecisionPolicy | None = None):
     The wrapper exposes ``wrapped.sites(*args, **kwargs)``: the
     :class:`Site` decisions for those inputs, the same records
     :func:`site_report` gives.
+
+    ``backend`` injects the default engine instead of resolving
+    ``policy.backend`` (the tuner's recording backend rides the same
+    wrapper this way).  An engine whose ``intercepts_all_sites`` is true
+    runs every *eligible* site, a demoted one too, whatever its spec;
+    one with ``observe_sites`` is handed each call's decisions, a dict
+    name -> :class:`Site` in discovery order, after the call.
+
+    ``plan`` accepts a :class:`repro_torch.tune.PrecisionPlan`: with no
+    ``policy`` its policy (``PrecisionPolicy.from_plan``) drives the
+    offload.  With ``plan_match="strict"`` each call's site set (and
+    each ``sites`` report) is validated against the plan's fingerprint
+    (``plan.validate_sites``), so a drifted program raises
+    :class:`~repro_torch.tune.PlanStaleError`; an eager program is only
+    known once it has run, so the error comes after the call, before
+    its result is returned.  ``plan_match="subset"`` applies the
+    overlapping entries and ignores the rest (``on_unmatched_site=
+    "ignore"``), as a serve engine runs a train-calibrated plan.
     """
-    policy = policy or PrecisionPolicy()
-    backend = get_backend(policy.backend, policy=policy)
+    if plan_match not in ("strict", "subset"):
+        raise ValueError(f"plan_match must be 'strict' or 'subset', "
+                         f"got {plan_match!r}")
+    if policy is None:
+        policy = (PrecisionPolicy() if plan is None else
+                  PrecisionPolicy.from_plan(
+                      plan, **({"on_unmatched_site": "ignore"}
+                               if plan_match == "subset" else {})))
+    backend = backend or get_backend(policy.backend, policy=policy)
     engines: Dict[str, GemmBackend] = {policy.backend: backend}
+    authoritative = getattr(backend, "intercepts_all_sites", False)
+    observe = getattr(backend, "observe_sites", None)
 
     def engine_for(site: Site) -> GemmBackend:
+        if authoritative:
+            return backend
         spec = site.backend or policy.backend
         if spec not in engines:
             engines[spec] = get_backend(spec, policy=policy)
         return engines[spec]
 
+    def validate(found: List[Site]) -> None:
+        if plan is not None and plan_match == "strict":
+            plan.validate_sites(found)
+
     def wrapped(*args, **kwargs):
-        mode = _OffloadMode(policy, engine_for, execute=True)
+        mode = _OffloadMode(policy, engine_for, execute=True,
+                            authoritative=authoritative)
         out = mode.run(fn, args, kwargs)
         _check_overrides(policy, mode.sites)
+        validate(mode.sites)
+        if observe is not None:
+            observe({site.name: site for site in mode.sites})
         return out
 
     def sites(*args, **kwargs) -> List[Site]:
-        return site_report(fn, policy)(*args, **kwargs)
+        found = site_report(fn, policy)(*args, **kwargs)
+        _check_overrides(policy, found)
+        validate(found)
+        return found
 
     wrapped.__name__ = f"offload({getattr(fn, '__name__', 'fn')})"
     wrapped.sites = sites

@@ -93,6 +93,32 @@ class PrecisionPolicy:
         kw["site_backends"] = dict(kw.get("site_backends", {}))
         return cls(**kw)
 
+    @classmethod
+    def from_plan(cls, plan, **overrides) -> "PrecisionPolicy":
+        """Build the policy a :class:`~repro_torch.tune.PrecisionPlan`
+        encodes, as the reference's ``from_plan``: its backend family,
+        accumulator, slice bits and size gate, per-site split counts
+        and per-site demotions to ``"dgemm"``; ``default_splits`` is the
+        plan's largest count (6 for a plan of no sites).  ``overrides``
+        replace fields (``on_unmatched_site="ignore"`` where the plan
+        covers more sites than the function).
+        """
+        site_splits = {s.site: s.splits for s in plan.sites
+                       if s.backend != "dgemm"}
+        site_backends = {s.site: s.backend for s in plan.sites
+                         if s.backend != plan.backend}
+        kw = dict(
+            default_splits=max(site_splits.values(), default=6),
+            min_dim=plan.min_dim,
+            accumulator=plan.accumulator,
+            slice_bits=plan.slice_bits,
+            backend=plan.backend,
+            site_splits=site_splits,
+            site_backends=site_backends,
+        )
+        kw.update(overrides)
+        return cls(**kw)
+
     def _lookup(self, table: Dict[str, object], site: str):
         if site in table:
             return table[site]

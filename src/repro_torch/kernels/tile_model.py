@@ -48,6 +48,8 @@ from ..core.ozaki import num_pair_gemms, pair_indices
 __all__ = [
     "CTA_M",
     "CTA_N",
+    "DEFAULT_PARAMS",
+    "HopperParams",
     "K_ALIGN",
     "TileDecision",
     "Traffic",
@@ -62,6 +64,7 @@ __all__ = [
     "k1_plans",
     "pair_schedule",
     "select_tiles",
+    "split_cost",
     "traffic",
 ]
 
@@ -128,6 +131,61 @@ SMEM_PER_SM = 233_472
 #: too small for L2 to bind.
 K1_L2_BYTES_PER_S = 5.1e12
 K1_CHUNK_US = {(64, 32): 0.63, (64, 64): 0.765, (128, 64): 0.75}
+
+
+@dataclasses.dataclass(frozen=True)
+class HopperParams:
+    """The rates of one H100 SXM the cost model prices against.
+
+    The port's counterpart of the reference's ``TPUParams``: NVIDIA's
+    data-sheet peaks at the 700 W limit (dense INT8 tensor-core
+    operations and HBM bandwidth), the SM count and shared memory the
+    kernels are planned for, and K1's L2-to-SM read rate fitted to the
+    plan sweep (``chip_smoke.py --k1-plans``).  No TPU number.
+    :func:`split_cost` prices a split from the first two; K1's plan rule
+    (:func:`k1_plan`, and :func:`select_tiles` through it) reads the
+    last three.
+    """
+
+    int8_ops: float = 1979e12          # INT8 operations per second
+    hbm_bw: float = 3.35e12            # bytes per second of HBM
+    l2_bw: float = K1_L2_BYTES_PER_S   # K1's fitted L2 read rate
+    num_sms: int = NUM_SMS
+    smem_per_sm: int = SMEM_PER_SM
+
+    @property
+    def int8_macs(self) -> float:
+        """INT8 multiply-accumulates per second."""
+        return self.int8_ops / 2
+
+
+DEFAULT_PARAMS = HopperParams()
+
+# Output extent at which split_cost converts a slice layer's bytes into
+# pair-GEMM units without knowing m and n (the tuner prices sites by k
+# and flops only); the reference's nominal extent.
+_NOMINAL_EXTENT = 1024
+
+
+def split_cost(num_splits: int,
+               params: HopperParams = DEFAULT_PARAMS) -> float:
+    """Modelled cost of one emulated GEMM at ``num_splits``, in units of
+    one pair-GEMM's tensor-core time: the tuner's price of a split.
+
+    cost(s) = pairs(s) + s * slice_tax, the reference's formula in rate
+    terms: each split streams one more int8 slice layer of A and B,
+    ``k * (m + n)`` bytes, against a pair-GEMM's ``m * n * k`` MACs, so
+    at the nominal extent ``m = n = 1024``::
+
+        slice_tax = int8_macs * (2 / 1024) / hbm_bw
+
+    On the H100 that is 989.5e12 * (2/1024) / 3.35e12 ~ 0.58 pair-GEMMs
+    per slice, against ~0.037 on the TPU v5e the reference prices: the
+    card's INT8 rate is higher against its memory rate, so each added
+    split costs more in traffic here.
+    """
+    tax = params.int8_macs * (2.0 / _NOMINAL_EXTENT) / params.hbm_bw
+    return num_pair_gemms(num_splits) + num_splits * tax
 
 
 def align_up(x: int, multiple: int) -> int:
@@ -253,7 +311,7 @@ def k1_plans(m: int, k: int, n: int, num_splits: int,
 
 
 def _k1_streamed_ms(plan: K1Plan, m: int, k: int, n: int,
-                    num_splits: int) -> float:
+                    num_splits: int, params: HopperParams) -> float:
     """Modelled time of a streamed plan: the larger of its L2 reads at
     the rate the plan sweep reached and its waves of per-CTA chunk
     chains (``K1_CHUNK_US`` per 128-byte chunk, measured where the grid
@@ -261,15 +319,16 @@ def _k1_streamed_ms(plan: K1Plan, m: int, k: int, n: int,
     chunks = num_pair_gemms(num_splits) * -(-k // K1_K_CHUNK)
     reads = plan.ctas * chunks * (plan.block_m + plan.block_n) * K1_K_CHUNK
     per_sm = min(3 if plan.block_m == 64 else 1,
-                 SMEM_PER_SM // (plan.smem_bytes + K1_STATIC_SMEM))
-    waves = -(-plan.ctas // (NUM_SMS * per_sm))
+                 params.smem_per_sm // (plan.smem_bytes + K1_STATIC_SMEM))
+    waves = -(-plan.ctas // (params.num_sms * per_sm))
     chain = waves * chunks * K1_CHUNK_US[plan.block_m, plan.block_n] / 1e3
-    return max(reads / K1_L2_BYTES_PER_S * 1e3, chain)
+    return max(reads / params.l2_bw * 1e3, chain)
 
 
 @functools.lru_cache(maxsize=None)
 def k1_plan(m: int, k: int, n: int, num_splits: int,
-            block_k: int | None = None) -> K1Plan:
+            block_k: int | None = None, *,
+            params: HopperParams = DEFAULT_PARAMS) -> K1Plan:
     """K1's plan for one launch; cached per shape.
 
     The rule, from the plan sweep on an H100 (PERF.md): with one
@@ -277,18 +336,20 @@ def k1_plan(m: int, k: int, n: int, num_splits: int,
     fit and its grid fills the card's SMs, or, on a smaller grid, on the
     64x32 tile (twice the CTAs) if they fit there; otherwise stream, on
     the tile :func:`_k1_streamed_ms` models fastest (64x32 where the
-    grid is small, 64x64 or 128x64 where L2 reads bound it).  A launch
+    grid is small, 64x64 or 128x64 where L2 reads bound it).  The SM
+    count, shared memory per SM and L2 rate are ``params``'.  A launch
     forces another plan by passing one of :func:`k1_plans` to the
     wrappers' ``plan=``.
     """
     plans = k1_plans(m, k, n, num_splits, block_k)
     kept = {(p.block_m, p.block_n): p for p in plans if p.resident}
-    small = -(-m // 64) * -(-n // 64) < NUM_SMS
+    small = -(-m // 64) * -(-n // 64) < params.num_sms
     for tile in ((64, 32), (64, 64)) if small else ((64, 64),):
         if tile in kept:
             return kept[tile]
     return min((p for p in plans if not p.resident),
-               key=lambda p: _k1_streamed_ms(p, m, k, n, num_splits))
+               key=lambda p: _k1_streamed_ms(p, m, k, n, num_splits,
+                                             params))
 
 
 def pair_schedule(num_splits: int, mode: str = "ordered"):
@@ -421,13 +482,16 @@ class TileDecision:
 @functools.lru_cache(maxsize=None)
 def select_tiles(m: int | None, k: int | None, n: int | None,
                  num_splits: int, dtype=None, *,
-                 fused: bool = False) -> TileDecision:
+                 fused: bool = False,
+                 params: HopperParams = DEFAULT_PARAMS) -> TileDecision:
     """Pick ``block_m/n/k`` for an emulated GEMM — closed form, no sweep,
     cached per site shape.
 
     ``dtype`` is accepted for the reference's (m, k, n, s, dtype)
-    contract and does not change the pick.  Unfused, with the shape
-    known, ``block_m``/``block_n`` are K1's plan tile (:func:`k1_plan`).
+    contract and does not change the pick; ``block_k`` is the
+    reference's rule, whatever the rates.  Unfused, with the shape
+    known, ``block_m``/``block_n`` are K1's plan tile (:func:`k1_plan`
+    under ``params``).
     """
     del dtype
     bk = block_k_for(k)
@@ -437,7 +501,7 @@ def select_tiles(m: int | None, k: int | None, n: int | None,
         vmem = FUSED_STAGE_BYTES + num_splits * FUSED_SLICE_BYTES
         mmas = (bm // 16) * (bn // 8) * (bk // 32)
     elif known and 1 <= num_splits <= MAX_KERNEL_SPLITS:
-        plan = k1_plan(m, k, n, num_splits, bk)
+        plan = k1_plan(m, k, n, num_splits, bk, params=params)
         bm, bn, vmem = plan.block_m, plan.block_n, plan.smem_bytes
         mmas = (bm // 64) * (bk // 32)
     else:

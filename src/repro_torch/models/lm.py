@@ -65,6 +65,7 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..configs import LMConfig
 from ..core.intercept import scan
+from . import prng
 
 __all__ = ["Model", "params_from_reference"]
 
@@ -236,18 +237,21 @@ class Model(nn.Module):
     # -- parameters --------------------------------------------------
 
     def _init_params(self, seed: int) -> None:
-        """Scaled-normal projections, unit norms and, as in the
-        reference, a zero LM head (untied) — a model made only from the
-        seed therefore decodes token 0; serving smokes set the head."""
+        """The reference's ``init_params(PRNGKey(seed))``, to the bit:
+        scaled-normal projections drawn from ``split(key, 8)`` in its
+        order (:mod:`repro_torch.models.prng`), unit norms and a zero
+        LM head (untied) — a model made only from the seed therefore
+        decodes token 0; serving smokes set the head."""
         cfg = self.cfg
         L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        keys = iter(prng.split(prng.prng_key(seed), 8))
         s_in = d ** -0.5
         s_out = s_in / (2 * L) ** 0.5  # residual-branch damping
 
         def init(shape, scale):
-            w = torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=self.device) * scale
+            # The scale is a weakly typed float32 scalar, as in jax.
+            w = prng.normal(next(keys), shape, self.device) * torch.tensor(
+                scale, dtype=torch.float32, device=self.device)
             return nn.Parameter(w.to(self.param_dtype),
                                 requires_grad=False)
 

@@ -21,7 +21,13 @@ prefill projection and MLP GEMM (``m`` = tokens of the wave) runs on
 the CUDA split-GEMM kernel K1; decode GEMMs (``m`` = slots) and the LM
 head (``m`` = rows) stay under the size gate and run native.
 
-Not ported: ``mesh``, ``plan``, ``metrics``, ``metrics_port`` and
+Tunable-precision serving: pass ``plan=`` (a
+:class:`repro_torch.tune.PrecisionPlan`, e.g. the one the trainer's
+``--tune`` wrote) and the engine serves under the policy the plan
+encodes, in subset mode: a train-calibrated plan carries backward-pass
+sites the serving programs never run, and those entries are ignored.
+
+Not ported: ``mesh``, ``metrics``, ``metrics_port`` and
 ``warm_cache_dir`` raise ``NotImplementedError``.
 """
 
@@ -51,8 +57,12 @@ class Engine:
         or :func:`~repro_torch.models.params_from_reference`).
       batch_slots: decode batch width = number of concurrent requests.
       max_len: KV-cache capacity per slot.
+      plan: optional :class:`~repro_torch.tune.PrecisionPlan`; the
+        programs run under ``offload`` with the plan's policy, in
+        subset mode (``on_unmatched_site="ignore"``).
       policy: optional :class:`~repro_torch.core.PrecisionPolicy`; the
-        prefill and decode programs run under ``offload``.
+        prefill and decode programs run under ``offload``.  Wins over
+        ``plan`` for the offload's configuration if both are given.
       kv_layout: ``"paged"`` (default) or ``"dense"``.
       block_size: paged block granularity; ``max_len`` must divide by
         it.
@@ -76,7 +86,7 @@ class Engine:
                  scheduler_policy: str = "fifo",
                  metrics_port: Optional[int] = None,
                  device=None):
-        _not_ported(mesh=mesh, plan=plan, metrics=metrics,
+        _not_ported(mesh=mesh, metrics=metrics,
                     metrics_port=metrics_port,
                     warm_cache_dir=warm_cache_dir)
         if kv_layout not in ("paged", "dense"):
@@ -89,6 +99,12 @@ class Engine:
         self.batch_slots = int(batch_slots)
         self.max_len = int(max_len)
         self.params = params
+        if policy is None and plan is not None:
+            # Subset mode: the plan's backward-pass and other unmatched
+            # entries are expected here, not typos to warn about.
+            policy = PrecisionPolicy.from_plan(plan,
+                                               on_unmatched_site="ignore")
+        self.plan = plan
         self.policy = policy
         if kv_layout == "paged":
             self.kv = PagedKVCache(model, self.batch_slots, self.max_len,
@@ -98,7 +114,7 @@ class Engine:
             self.kv = DenseKVCache(model, self.batch_slots, self.max_len)
         self.runner = Runner(
             model, params, self.kv, max_len=self.max_len, policy=policy,
-            chunk_tokens=chunk_tokens,
+            plan=plan, chunk_tokens=chunk_tokens,
             chunk_token_budget=chunk_token_budget)
         self.scheduler = Scheduler(self.max_len, policy=scheduler_policy)
         self.slots: List[Optional[Request]] = [None] * self.batch_slots

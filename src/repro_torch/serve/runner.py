@@ -16,9 +16,10 @@ preserved) — only relevant for the dense layout, whose chunk padding is
 written in-rectangle; the paged layout routes padding to the trash
 block.
 
-Not ported: meshes, precision plans, the persistent transform cache
-(``warm_cache_dir``) and metrics; passing any of them raises
-``NotImplementedError``.
+A precision plan runs in subset mode: the programs take the plan's
+entries for the sites they have and ignore the rest.  Not ported:
+meshes, the persistent transform cache (``warm_cache_dir``) and
+metrics; passing any of them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -78,9 +79,10 @@ class Runner:
                  policy=None, chunk_tokens: Optional[int] = None,
                  chunk_token_budget: Optional[int] = None, mesh=None,
                  plan=None, metrics=None, warm_cache_dir=None):
-        _not_ported(mesh=mesh, plan=plan, metrics=metrics,
+        _not_ported(mesh=mesh, metrics=metrics,
                     warm_cache_dir=warm_cache_dir)
         self.model = model
+        self.plan = plan
         self.params = params
         self.kv = kv
         self.max_len = int(max_len)
@@ -113,7 +115,10 @@ class Runner:
 
     def _wrap(self, fn):
         """The program as called: offloaded under a policy, else plain."""
-        return fn if self.policy is None else offload(fn, self.policy)
+        if self.policy is None:
+            return fn
+        return offload(fn, self.policy, plan=self.plan,
+                       plan_match="subset")
 
     def _tensor(self, array) -> torch.Tensor:
         return torch.as_tensor(array, device=self.device)

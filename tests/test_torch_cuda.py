@@ -354,3 +354,31 @@ def test_paged_programs_bitwise_equal_dense_on_card():
             tokens, torch.zeros(B, dtype=torch.int32, device="cuda"),
             lengths)
     assert torch.equal(paged, dense)
+
+
+def test_pow2_scale_card_equals_cpu_across_exponents():
+    # Every slice starts at _pow2_scale: random amax values over the whole
+    # float64 exponent range, subnormals included, card == CPU bitwise.
+    from repro_torch.core.ozaki import _pow2_scale
+
+    gen = np.random.default_rng(11)
+    n = 1 << 20
+    bits = (gen.integers(0, 2047, n, dtype=np.int64) << 52) | \
+        gen.integers(0, 1 << 52, n, dtype=np.int64)
+    x = torch.from_numpy(bits.view(np.float64).reshape(-1, 1).copy())
+    assert (x.abs() < torch.finfo(torch.float64).tiny).any()
+    assert torch.equal(_pow2_scale(x.cuda(), 1).cpu().view(torch.int64),
+                       _pow2_scale(x, 1).view(torch.int64))
+
+
+@pytest.mark.parametrize("seed", [0, 2 ** 31 + 5])
+def test_seeded_init_card_equals_cpu(seed):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train.checkpoint import tree_flatten
+
+    cfg = get_config("tiny")
+    cpu = tree_flatten(Model(cfg, device="cpu", seed=seed).params)
+    card = tree_flatten(Model(cfg, device="cuda", seed=seed).params)
+    for a, b in zip(cpu, card):
+        assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))

@@ -517,6 +517,96 @@ class TestBackwardSites:
         # product at s = 5 is off by up to 5.1e-7 here, through tanh'.
         torch.testing.assert_close(got, f(*args), rtol=0, atol=2e-6)
 
+    # Programs the reference names without a cotangent for every
+    # product: one whose product never reaches the loss, and two
+    # gradient passes in one call (the second differentiating b only,
+    # though b takes a gradient in the first pass's graph too).
+    @staticmethod
+    def _dead_product_jax(a, b, c):
+        def loss(a, b, c):
+            y = a @ b
+            dead = y @ c
+            return jnp.sum(jnp.tanh(y @ b.T)), dead
+
+        (val, dead), g = jax.value_and_grad(
+            loss, argnums=(0, 1, 2), has_aux=True)(a, b, c)
+        return val, dead, g
+
+    @staticmethod
+    def _dead_product_torch(a, b, c):
+        a, b, c = (x.clone().requires_grad_() for x in (a, b, c))
+        y = a @ b
+        dead = y @ c
+        loss = torch.sum(torch.tanh(y @ b.T))
+        g = torch.autograd.grad(loss, (a, b, c), allow_unused=True)
+        return loss, dead, g
+
+    @staticmethod
+    def _two_passes_jax(a, b, c):
+        g1 = jax.grad(lambda a: jnp.sum(jnp.tanh(a @ b)))(a)
+        return jax.grad(lambda b: jnp.sum(jnp.tanh(g1 @ b @ c)))(b)
+
+    @staticmethod
+    def _two_passes_torch(a, b, c):
+        a, b = a.clone().requires_grad_(), b.clone().requires_grad_()
+        (g1,) = torch.autograd.grad(torch.sum(torch.tanh(a @ b)), (a,))
+        (g2,) = torch.autograd.grad(torch.sum(torch.tanh(g1 @ b @ c)),
+                                    (b,))
+        return g2
+
+    @pytest.mark.parametrize("min_dim", [16, 128])
+    @pytest.mark.parametrize("program", ["dead_product", "two_passes"])
+    def test_sites_match_reference_beyond_one_pass(self, program, min_dim):
+        # min_dim 16 routes every product (and cotangent) through the
+        # engine, 128 leaves them native (hooks name the cotangents).
+        fj = getattr(self, f"_{program}_jax")
+        ft = getattr(self, f"_{program}_torch")
+        arrays = _arr((32, 48), 60), _arr((48, 40), 61), _arr((40, 24), 62)
+        p_ref, pol = _policies(min_dim=min_dim, backend="fp64_int8_5")
+        want = [_record(s) for s in offload_ref(fj, p_ref).sites(
+            *map(jnp.asarray, arrays))]
+        args = [torch.from_numpy(x) for x in arrays]
+        got = [_record(s) for s in offload(ft, pol).sites(*args)]
+        assert got == want
+        assert len(got) == (7 if program == "dead_product" else 6)
+        # The offloaded call runs (no cotangent without a site): the dead
+        # product, emulated, is the reference's to the bit; the outputs
+        # (native products, sums of cotangents and of tanh' terms, in
+        # other orders) agree to 1e-12 of their largest entry.
+        out = jax.tree_util.tree_leaves(offload_ref(fj, p_ref)(
+            *map(jnp.asarray, arrays)))
+        mine = [x.detach() for x in jax.tree_util.tree_leaves(
+            offload(ft, pol)(*args)) if x is not None]
+        if program == "dead_product":
+            assert same_bits(out[1], mine[1]) or min_dim == 128
+            out, mine = out[:4], mine[:4]   # c's gradient: None here
+        for a, b in zip(out, mine):
+            a = np.asarray(a)
+            assert np.abs(a - b.numpy()).max() <= 1e-12 * np.abs(a).max()
+
+    def test_loss_backward_names_like_grad(self):
+        # Tensor.backward() starts a pass too: the cotangents of the
+        # products that reach the loss, onto every leaf.
+        arrays = _arr((32, 48), 63), _arr((48, 40), 64), _arr((40, 24), 65)
+
+        def f(a, b, c):
+            a, b, c = (x.clone().requires_grad_() for x in (a, b, c))
+            y = a @ b
+            dead = y @ c
+            torch.sum(torch.tanh(y @ b.T)).backward()
+            return a.grad, b.grad, dead
+
+        def g(a, b, c):
+            loss, dead, grads = self._dead_product_torch(a, b, c)
+            return grads[0], grads[1], dead
+
+        pol = PrecisionPolicy(min_dim=16, backend="fp64_int8_5")
+        args = [torch.from_numpy(x) for x in arrays]
+        assert [_record(s) for s in offload(f, pol).sites(*args)] == \
+            [_record(s) for s in offload(g, pol).sites(*args)]
+        for x, y in zip(offload(f, pol)(*args), offload(g, pol)(*args)):
+            assert torch.equal(x, y)
+
     @pytest.mark.parametrize("s", [3, 6, 9])
     def test_rhs_cotangent_orientations_bitwise(self, s):
         # (g^T @ lhs)^T, the reference's orientation and the port's,

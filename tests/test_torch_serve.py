@@ -12,6 +12,8 @@ sequential, paged == dense, chunked == unchunked, fifo/edf order,
 named validation errors, EOS eviction and clean slot reuse.
 """
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -163,10 +165,37 @@ class TestEngine:
         assert second.out == _run(small, [prompt], batch_slots=1,
                                   max_len=64)[0]
 
+    def test_plan_at_startup_matches_unplanned_tokens(self, small):
+        """The reference's test: the engine loads a (loss-calibrated)
+        precision plan at startup and serves under it in subset mode;
+        at solved split counts the emulation error is far below
+        greedy-argmax resolution, so the tokens match exactly."""
+        from repro_torch.tune import Calibrator, solve_plan
+
+        batch = torch.from_numpy(np.random.default_rng(9).integers(
+            1, SMALL["vocab_size"], (2, 33)).astype(np.int32))
+        cal = Calibrator(small.loss, PrecisionPolicy(default_splits=6,
+                                                     min_dim=32))
+        cal.run(small.params, batch)
+        plan = solve_plan(cal.result(), budget=1e-9)
+
+        prompts = _prompts([5, 9, 16, 12], seed=6)
+        planned = Engine(small, small.params, batch_slots=4, max_len=64,
+                         plan=plan)
+        assert planned.plan is plan
+        psites = planned.prefill_sites(rows=4, width=16)
+        assert sum(s.offloaded for s in psites) > 0
+        splits = plan.site_splits()
+        assert all(s.splits == splits[s.name] for s in psites
+                   if s.offloaded)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")   # subset mode: no warning
+            got = [r.out for r in planned.run(_reqs(prompts))]
+        assert got == _run(small, prompts, batch_slots=4, max_len=64)
+
     def test_not_ported_options_raise(self, small):
-        for kw in (dict(mesh=object()), dict(plan=object()),
-                   dict(metrics=object()), dict(metrics_port=0),
-                   dict(warm_cache_dir="x")):
+        for kw in (dict(mesh=object()), dict(metrics=object()),
+                   dict(metrics_port=0), dict(warm_cache_dir="x")):
             with pytest.raises(NotImplementedError):
                 Engine(small, small.params, **kw)
 

@@ -33,6 +33,7 @@ from repro_torch.launch.train import main as train_main
 from repro_torch.models import Model, params_from_reference
 from repro_torch.train import AdamW, CheckpointError, SyntheticText, checkpoint
 from repro_torch.train.checkpoint import tree_flatten
+from repro_torch.tune import PrecisionPlan
 from torch_parity import same_bits
 
 # One intra-op thread: tier-1 runs several test processes at once,
@@ -467,8 +468,8 @@ class TestMain:
 
     @pytest.mark.parametrize("flags,item", [
         (["--mesh", "dp=2"], 9), (["--grad-reduce", "ppermute"], 9),
-        (["--bucket-mb", "2"], 9), (["--tune", "1", "--plan", "p.json"], 7),
-        (["--plan", "p.json"], 7), (["--allow-plan-change"], 7),
+        (["--bucket-mb", "2"], 9),
+        (["--tune", "1", "--plan", "p.json", "--mesh", "dp=2"], 9),
         (["--metrics-dir", "m"], 10), (["--metrics-port", "0"], 10),
         (["--metrics-push-url", "http://localhost:1/push"], 10)])
     def test_unported_flags_raise(self, tmp_path, flags, item):
@@ -491,6 +492,118 @@ class TestMain:
         assert checkpoint.load_meta(tmp_path, 2) == {
             "plan_fingerprint": None, "backend": "pallas_int8_4",
             "plan_path": None}
+
+    def test_resume_enforces_plan_fingerprint(self, tmp_path):
+        """The reference's test: a checkpoint lineage pins its precision
+        plan; resuming under another configuration stops, unless
+        ``--allow-plan-change``."""
+        d = tmp_path / "planned"
+        plan_path = tmp_path / "plan.json"
+        tune_args = _cli(2, d) + ["--tune", "1", "--plan", str(plan_path),
+                                  "--min-dim", "32"]
+        assert train_main(tune_args, device="cpu") == []  # calibrate only
+        assert plan_path.exists() and (tmp_path / "plan.tiles.json").exists()
+        assert checkpoint.latest_step(d) is None   # tune never trains
+
+        plan_cli = _cli(2, d) + ["--plan", str(plan_path)]
+        report = {}
+        losses = train_main(plan_cli, device="cpu", report=report)
+        assert len(losses) == 2
+        meta = checkpoint.load_meta(d, 2)
+        plan = PrecisionPlan.load(plan_path)
+        assert meta == {"plan_fingerprint": plan.fingerprint,
+                        "backend": None, "plan_path": str(plan_path)}
+        # The step ran under the plan's per-site split counts.
+        solved = plan.site_splits()
+        assert {s.name: s.splits for s in report["sites"]
+                if s.offloaded} == solved
+
+        with pytest.raises(SystemExit, match="precision plan"):
+            train_main(_cli(4, d), device="cpu")
+        bare = tmp_path / "bare"
+        train_main(_cli(2, bare), device="cpu")
+        with pytest.raises(SystemExit, match="precision plan"):
+            train_main(_cli(4, bare) + ["--plan", str(plan_path)],
+                       device="cpu")
+        assert len(train_main(_cli(4, d) + ["--plan", str(plan_path)],
+                              device="cpu")) == 2
+        assert len(train_main(_cli(4, bare) +
+                              ["--plan", str(plan_path),
+                               "--allow-plan-change"], device="cpu")) == 2
+        assert checkpoint.load_meta(bare, 4)["plan_fingerprint"] == \
+            plan.fingerprint
+
+    def test_tune_requires_plan_and_excludes_backend(self, tmp_path):
+        with pytest.raises(SystemExit, match="--plan"):
+            train_main(_cli(2, tmp_path) + ["--tune", "1"], device="cpu")
+        with pytest.raises(SystemExit, match="one"):
+            train_main(_cli(2, tmp_path) +
+                       ["--plan", "p.json", "--backend", "fp64_int8_4"],
+                       device="cpu")
+
+    def test_tune_with_a_pinned_backend_probes_there(self, tmp_path):
+        plan_path = tmp_path / "p.json"
+        train_main(_cli(2, tmp_path) + [
+            "--tune", "1", "--plan", str(plan_path), "--backend",
+            "pallas_int8_4", "--min-dim", "32"], device="cpu")
+        plan = PrecisionPlan.load(plan_path)
+        assert plan.backend == "pallas_int8" and plan.probe_splits == 4
+        assert (tmp_path / "p.tiles.json").exists()
+        assert all(s.tiles is not None for s in plan.sites)
+
+    def test_reference_plan_trains_in_the_port(self, tmp_path):
+        # A plan written by ``python -m repro.tune`` (its own flags:
+        # the tiny preset, 4 x 128 tokens) loads in the port, validates
+        # against the port's train-step sites and trains.
+        from repro.tune.cli import main as tune_main_ref
+
+        plan_path = tmp_path / "ref_plan.json"
+        tune_main_ref(["--arch", "tiny", "--plan", str(plan_path)])
+        plan = PrecisionPlan.load(plan_path)
+        port = Model(get_config("tiny"), device="cpu", seed=0)
+        opt = AdamW(lr=3e-3)
+        batch = torch.from_numpy(SyntheticText(512, 128, 4).batch(0))
+        sites = offload(build_train_step(port, opt),
+                        PrecisionPolicy.from_plan(plan)).sites(
+            port.params, opt.init(port.params), batch)
+        plan.validate_sites(sites)
+        report = {}
+        losses = train_main(["--arch", "tiny", "--steps", "1",
+                             "--ckpt-dir", str(tmp_path / "ckpt"),
+                             "--plan", str(plan_path)], device="cpu",
+                            report=report)
+        assert len(losses) == 1 and np.isfinite(losses[0])
+        assert report["int8_gemms_per_step"] > 0
+
+    def test_same_seed_trains_as_the_reference(self, tmp_path):
+        # F1: from one --seed both trainers start from the same weights,
+        # with no parameter hand-over: the losses agree to float32
+        # rounding (relative 1e-5, test_resumes_a_reference_lineage's
+        # bound), the step-1 gradients leaf by leaf to TestLoss's float32
+        # bound (1e-5 of each leaf's largest entry).
+        for seed in (0, 5):
+            want = train_main_ref(_cli(3, tmp_path / f"ref{seed}") +
+                                  ["--metrics-dir", "none", "--seed",
+                                   str(seed)])
+            got = train_main(_cli(3, tmp_path / f"port{seed}") +
+                             ["--seed", str(seed)], device="cpu")
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=0)
+        over = json.loads(_CLI_OVERRIDES)
+        ref = ModelRef(get_config_ref("tiny").replace(**over))
+        params_ref = ref.init_params(jax.random.PRNGKey(5))
+        batch = SyntheticTextRef(over["vocab_size"], 16, 2, seed=5).batch(0)
+        _, grads_ref = jax.value_and_grad(ref.loss)(params_ref,
+                                                    jnp.asarray(batch))
+        port = Model(get_config("tiny").replace(**over), device="cpu",
+                     seed=5)
+        leaves = _with_grad(port.params)
+        loss = port.loss(leaves, torch.from_numpy(batch))
+        grads = torch.autograd.grad(loss, tree_flatten(leaves))
+        for a, b in zip(jax.tree_util.tree_leaves(grads_ref), grads):
+            if not np.asarray(a).any():   # blocks under the zero head
+                assert not b.any()
+            else:
+                assert _max_rel(a, b) < 1e-5
 
     def test_resumes_a_reference_lineage(self, tmp_path):
         # The reference trains 2 steps, the port resumes to 4; its
