@@ -46,8 +46,8 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    and K2 and K3 at (256, 256, 4096) for s = 3, 6, 9: each with its
    bound, the FP64 ``torch.matmul`` it stands in for, the pair products
    as ``torch._int_mm``, its device time with launches queued back to
-   back (``device_ms``), and its plain version at s = 6; K3's kernel alone on gathered copies beside its
-   gather;
+   back (``device_ms``), and its plain version; K3's kernel alone on
+   gathered copies beside its gather;
 8. trains it: SmolLM-360M at full width through ``launch.train.main``,
    4 steps natively and 4 through ``pallas_int8_6``, the gradient
    emulated against native at each step, a kill-and-resume, one
@@ -59,7 +59,17 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    and gradients against native, K1's launches by split count against
    the site report, K1's device time per step beside the uniform
    run's) and serves phase 6's requests through ``Engine(plan=...)``;
-10. prints one JSON line describing every ported kernel (K1 once per
+10. observes it (``repro_torch.obs``): trains 4 full-width steps again
+   with telemetry on by default, ``--metrics-port 0`` and
+   ``--numerics-every 2``, scrapes ``/metrics`` while it trains, runs
+   the obs CLI's ``report --check``, ``attrib`` and ``export`` over the
+   run, holds the hook's executions against K1's launch counter and the
+   site report, the attributed INT8 GEMMs, every numerics report
+   within its budget and no synchronizing call added by the hook; then
+   serves phase 6's requests through ``Engine(metrics=...,
+   metrics_port=0)``, and prints telemetry's cost beside the runs
+   without it;
+11. prints one JSON line describing every ported kernel (K1 once per
    timed shape, the plan's three most-launched pairs among them), the
    card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -611,7 +621,8 @@ def _timed_runner(runner):
     """Wrap a runner's wave and tick with CUDA events; returns the
     record they fill (device ms, real tokens, wave shapes, ticks)."""
     rec = {"prefill_ms": 0.0, "decode_ms": 0.0, "prefill_tokens": 0,
-           "decode_tokens": 0, "waves": [], "ticks": 0}
+           "decode_tokens": 0, "waves": [], "ticks": 0, "wave_ms": [],
+           "wave_tokens": []}
     wave, tick = runner.prefill_wave, runner.decode_tick
 
     def events():
@@ -628,6 +639,8 @@ def _timed_runner(runner):
             rec["prefill_ms"] += start.elapsed_time(stop)
             rec["prefill_tokens"] += res.real_tokens
             rec["waves"].append((res.rows, res.width))
+            rec["wave_ms"].append(start.elapsed_time(stop))
+            rec["wave_tokens"].append(res.real_tokens)
         return res
 
     def timed_tick(next_token, active, reqs):
@@ -770,7 +783,9 @@ def phase_serve(checked_kn, seed=3, n_requests=8, max_new=16, splits=6,
 
     _profile_wave(eng, policy)
     del eng
-    return launches
+    return launches, dict(tokens=toks_emul, rec=results[
+        f"pallas_int8_{splits}"], prompts=prompts, engine_kw=engine_kw,
+        splits=splits)
 
 
 def _profile_wave(eng, policy, rows=2, width=256):
@@ -890,15 +905,19 @@ TUNE_GRAD_BOUND = 1e-3
 TRAIN_DIR = os.path.join(ROOT, "build", "train_smoke")
 
 
-def train_argv(steps, ckpt_dir, backend="", overrides=None):
+def train_argv(steps, ckpt_dir, backend="", overrides=None,
+               metrics_dir="none"):
     """``launch.train``'s command line for the smoke: SmolLM-360M at
     full width (``overrides``, config fields, shrink it for a
     rehearsal), 4 x 128 tokens a step, lr 3e-3 (the trainer's
-    defaults), a checkpoint only at the end."""
+    defaults), a checkpoint only at the end.  Telemetry is off unless
+    ``metrics_dir`` says otherwise (``""``: the trainer's default, on,
+    into ``<ckpt_dir>/metrics``), so the timed runs measure the
+    trainer without it."""
     argv = ["--arch", "smollm_360m", "--steps", str(steps), "--seq-len",
             "128", "--global-batch", "4", "--lr", "3e-3", "--seed", "0",
             "--ckpt-dir", ckpt_dir, "--ckpt-every", "1000",
-            "--log-every", "1"]
+            "--log-every", "1", "--metrics-dir", metrics_dir]
     if overrides:
         argv += ["--overrides", json.dumps(overrides)]
     return argv + (["--backend", backend] if backend else [])
@@ -1180,7 +1199,10 @@ def phase_train(errs, **overrides):
 
 def phase_train_resume(spec, overrides):
     """Kill and resume on the card: 2 steps into A; 1 step into B, then
-    B resumed to 2.  The two step-2 checkpoints must be the same bytes."""
+    B resumed to 2.  The two step-2 checkpoints must be the same bytes.
+    Telemetry is on, the trainer's default: each run writes its events
+    into ``metrics/`` beside the checkpoints, which the resume's
+    checkpoint discovery passes over."""
     import shutil
 
     from repro_torch.launch import train
@@ -1188,10 +1210,14 @@ def phase_train_resume(spec, overrides):
     dir_a = os.path.join(TRAIN_DIR, "resume_a")
     dir_b = os.path.join(TRAIN_DIR, "resume_b")
     t0 = time.perf_counter()
-    train.main(train_argv(2, dir_a, spec, overrides), device="cuda")
-    train.main(train_argv(1, dir_b, spec, overrides), device="cuda")
-    resumed = train.main(train_argv(2, dir_b, spec, overrides),
+    train.main(train_argv(2, dir_a, spec, overrides, ""), device="cuda")
+    train.main(train_argv(1, dir_b, spec, overrides, ""), device="cuda")
+    resumed = train.main(train_argv(2, dir_b, spec, overrides, ""),
                          device="cuda")
+    runs = sorted(os.listdir(os.path.join(dir_b, "metrics")))
+    if runs != ["events-0000.jsonl", "events-0001.jsonl"]:
+        fail(f"kill-and-resume: telemetry runs {runs} in {dir_b}/metrics, "
+             "expected one per invocation")
     name = "step_00000002.npz"
     with open(os.path.join(dir_a, name), "rb") as fa, \
             open(os.path.join(dir_b, name), "rb") as fb:
@@ -1488,6 +1514,319 @@ def phase_tune_serve(errs, plan, seed=3, n_requests=8,
     return launches
 
 
+OBS_DIR = os.path.join(ROOT, "build", "obs_smoke")
+OBS_STEPS = 4
+OBS_NUMERICS_EVERY = 2
+# Pairs of emulated steps without and with the site hook, timed in turns.
+OBS_PAIRS = 4
+
+
+def _prometheus(text):
+    """``{(name, labels text): value}`` of a ``/metrics`` body; fails
+    on a line the exposition format does not allow."""
+    series = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# TYPE "):
+            continue
+        found = re.match(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)$",
+                         line)
+        if not found:
+            fail(f"/metrics: invalid exposition line {line!r}")
+        series[(found.group(1), found.group(2) or "")] = float(
+            found.group(3).replace("+Inf", "inf"))
+    return series
+
+
+def _scrape(url):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{url}/metrics", timeout=30) as resp:
+        return _prometheus(resp.read().decode())
+
+
+def _site_exec_total(events):
+    return sum(ev["value"] for ev in events if ev.get("type") == "metric"
+               and ev.get("name") == "site_exec")
+
+
+def _obs_cli(*argv):
+    """``python -m repro_torch.obs`` in this process: (exit code, text)."""
+    import io
+
+    from repro_torch.obs.cli import main as obs_main
+
+    out = io.StringIO()
+    return obs_main(list(argv), out=out), out.getvalue()
+
+
+def _syncs(fn, args):
+    """The synchronizing calls ``torch.cuda.set_sync_debug_mode("warn")``
+    reports over one call of ``fn`` (backward ones are replayed on this
+    thread), counted by the source line that issued them."""
+    import warnings
+    from collections import Counter
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "called a synchronizing CUDA operation" in str(w.message))
+
+
+def phase_obs(served, trained, **overrides):
+    """Telemetry on the card (``repro_torch.obs``), on both main paths.
+
+    Train: SmolLM-360M at full width, ``OBS_STEPS`` steps through
+    pallas_int8_6 by ``launch.train.main`` with telemetry on by default,
+    ``--metrics-port 0`` and ``--numerics-every 2``; ``/metrics``
+    scraped over 127.0.0.1 while it trains; the obs CLI's ``report
+    --check``, ``attrib`` and ``export`` over the run.  Held: one
+    ``train_step`` span a step, the sum of ``site_exec`` equal to the
+    site report's executions and to K1's launch counter, the attributed
+    INT8 GEMMs equal to the steps times ``count_int8_gemms``, every
+    numerics report within its budget, and one emulated step issuing
+    as many synchronizing calls with the hook as without.  Serve: phase
+    6's requests through ``Engine(metrics=..., metrics_port=0)``; held:
+    ``serve_tokens``, prefill ``site_exec`` equal to K1's launch
+    counter and to phase 6's, the greedy streams equal to phase 6's.
+    Prints telemetry's cost against phases 8 and 6 (telemetry off),
+    gating nothing.  Returns K1's launches.
+    """
+    import shutil
+    import threading
+
+    from repro_torch.core import PrecisionPolicy, offload
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.obs import MetricsRun, attribution, load_runs
+    from repro_torch.serve import Engine, Request
+    from repro_torch.tune import count_int8_gemms
+
+    t0 = time.perf_counter()
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    spec = f"pallas_int8_{TRAIN_SPLITS}"
+    argv = train_argv(OBS_STEPS, os.path.join(OBS_DIR, "train"), spec,
+                      overrides, metrics_dir="") + [
+        "--metrics-port", "0", "--numerics-every", str(OBS_NUMERICS_EVERY)]
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    report, box = {}, {}
+
+    def run():
+        try:
+            box["losses"] = train.main(argv, device="cuda", report=report)
+        except BaseException as exc:   # re-raised below, on this thread
+            box["error"] = exc
+
+    trainer = threading.Thread(target=run, name="obs-train")
+    trainer.start()
+    live = None
+    while trainer.is_alive() and live is None:
+        if "metrics_url" in report:
+            found = _scrape(report["metrics_url"])
+            if any(name == "site_exec" for name, _ in found):
+                live = found
+        time.sleep(0.1)
+    trainer.join()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if "error" in box:
+        raise box["error"]
+    if live is None:
+        fail("obs: no site_exec series scraped from /metrics while the "
+             "trainer ran")
+    sites = report["sites"]
+    per_step = sum(s.batch * s.mult for s in sites if s.offloaded)
+    gemms = count_int8_gemms(sites)
+    directory = report["metrics_dir"]
+    (run_id, events), = list(load_runs(directory).items())[-1:]
+    execs = _site_exec_total(events)
+    kinds = [ev["type"] for ev in events]
+    numerics = [ev for ev in events if ev["type"] == "numerics"]
+    budget = 32 * float(torch.finfo(torch.float32).eps)
+    emulated = trained.get("emulated_losses")
+    print(f"[obs] train: {OBS_STEPS} steps, losses {box['losses']} "
+          f"(phase 8's run without telemetry: {emulated}, equal: "
+          f"{box['losses'] == emulated}); "
+          f"scraped /metrics at {report['metrics_url']} mid-run: "
+          f"{len(live)} series, site_exec series "
+          f"{sum(1 for n, _ in live if n == 'site_exec')}, numerics gauge "
+          f"{[v for (n, _), v in live.items() if n == 'numerics_realized_rel']}")
+    print(f"[obs] run {run_id} in {directory}: {len(events)} events "
+          f"({kinds.count('step')} step, {kinds.count('site_decl')} "
+          f"site_decl, {len(numerics)} numerics); sum of site_exec "
+          f"{execs:.0f} = {OBS_STEPS} x {per_step} from the site report; "
+          f"K1 launches {launches['split_gemm']}")
+    if len(box["losses"]) != OBS_STEPS or not all(
+            np.isfinite(box["losses"])):
+        fail(f"obs: train losses {box['losses']}")
+    if execs != OBS_STEPS * per_step or execs != launches["split_gemm"]:
+        fail(f"obs: sum of site_exec {execs} != {OBS_STEPS} x {per_step} "
+             f"or != K1's launches {launches}")
+    rc, text = _obs_cli("report", directory, "--check")
+    print("[obs] report --check:\n" + text.rstrip())
+    if rc != 0 or "CHECK OK" not in text:
+        fail(f"obs: report --check exited {rc}")
+    rc, text = _obs_cli("attrib", directory)
+    print("[obs] attrib:\n" + "\n".join(text.splitlines()[:8]))
+    rows = attribution(events)
+    attributed = sum(r.int8_gemms for r in rows)
+    print(f"[obs] attributed INT8 GEMMs {attributed:.0f} = {OBS_STEPS} x "
+          f"{gemms} (count_int8_gemms of the site report); wall shares "
+          f"sum {sum(r.wall_share for r in rows):.6f}")
+    if rc != 0 or attributed != OBS_STEPS * gemms:
+        fail(f"obs: attrib exited {rc}, {attributed} INT8 GEMMs != "
+             f"{OBS_STEPS} x {gemms}")
+    trace = os.path.join(OBS_DIR, "trace.json")
+    rc, text = _obs_cli("export", directory, "-o", trace)
+    with open(trace) as f:
+        spans = [ev for ev in json.load(f)["traceEvents"]
+                 if ev.get("ph") == "X"]
+    steps = [ev for ev in spans if ev["name"] == "train_step"]
+    print(f"[obs] export: {text.strip()}; train_step spans "
+          f"{[round(ev['dur'] / 1e3, 1) for ev in steps]} ms")
+    if rc != 0 or len(steps) != OBS_STEPS:
+        fail(f"obs: export exited {rc} with {len(steps)} train_step spans")
+    print(f"[obs] numerics: " + "; ".join(
+        f"step {ev['step']} {ev['site']} s={ev['splits']} realized "
+        f"{ev['realized_rel']:.3e} (budget {ev['budget']:.3e})"
+        for ev in numerics))
+    if len(numerics) != -(-OBS_STEPS // OBS_NUMERICS_EVERY) or any(
+            ev["drift"] or ev["budget"] != budget
+            or not 0 <= ev["realized_rel"] <= budget for ev in numerics):
+        fail(f"obs: numerics reports {numerics} not all within {budget}")
+
+    # The hook reads nothing from the device: one emulated step issues
+    # as many synchronizing calls with it as without.
+    model, opt, params, state, batch = _train_setup(overrides)
+    step = train.build_train_step(model, opt)
+    policy = PrecisionPolicy(backend=spec, default_splits=TRAIN_SPLITS)
+    sync_run = MetricsRun(os.path.join(OBS_DIR, "sync"))
+    plain = offload(step, policy)
+    hooked = offload(step, policy,
+                     on_site_event=sync_run.site_event_handler())
+    for fn in (plain, hooked):   # warm: the kernels' plans, allocator
+        fn(params, state, batch)
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    syncs = {"native": _syncs(step, (params, state, batch)),
+             "without": _syncs(plain, (params, state, batch))}
+    before = ops.LAUNCHES["split_gemm"]
+    execs_before = _site_exec_total(
+        [dict(s, type="metric") for s in sync_run.registry.snapshot()])
+    syncs["with"] = _syncs(hooked, (params, state, batch))
+    where = syncs["with"].most_common(6)
+    hooked_execs = _site_exec_total(
+        [dict(s, type="metric") for s in sync_run.registry.snapshot()]
+    ) - execs_before
+    hooked_launches = ops.LAUNCHES["split_gemm"] - before
+    sync_run.close()
+    print(f"[obs] synchronizing calls in one emulated step "
+          f"(set_sync_debug_mode('warn')): "
+          f"{sum(syncs['without'].values())} without the hook, "
+          f"{sum(syncs['with'].values())} with it, from {where} (the "
+          f"native step: {sum(syncs['native'].values())}, from "
+          f"{syncs['native'].most_common(6)}); the hooked "
+          f"step's site_exec {hooked_execs:.0f}, K1 launches "
+          f"{hooked_launches}")
+    if syncs["with"] != syncs["without"] or hooked_execs != per_step \
+            or hooked_launches != per_step:
+        fail(f"obs: the hook changed the step's synchronizing calls "
+             f"({syncs}) or its counts ({hooked_execs}, "
+             f"{hooked_launches} != {per_step})")
+    # The hook's own cost, paired in one process: host clock around a
+    # synchronized step, without and with the hook in turns.
+    paired = {"without": [], "with": []}
+    for i in range(OBS_PAIRS):
+        order = (("without", plain), ("with", hooked))
+        for label, fn in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            fn(params, state, batch)
+            torch.cuda.synchronize()
+            paired[label].append((time.perf_counter() - start) * 1e3)
+    print(f"[obs] one emulated step, {OBS_PAIRS} pairs in turns: without "
+          f"the hook {[round(x, 1) for x in paired['without']]} ms, with "
+          f"it {[round(x, 1) for x in paired['with']]} ms; medians "
+          f"{np.median(paired['without']):.1f} and "
+          f"{np.median(paired['with']):.1f} ms")
+    del model, opt, params, state, batch, step, plain, hooked
+    torch.cuda.empty_cache()
+
+    # Serve phase 6's requests with telemetry on.
+    model = _smollm("float32", 3, **overrides)
+    policy = PrecisionPolicy(backend="pallas_int8",
+                             default_splits=served["splits"])
+    serve_run = MetricsRun(os.path.join(OBS_DIR, "serve"))
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    eng = Engine(model, model.params, policy=policy, metrics=serve_run,
+                 metrics_port=0, **served["engine_kw"])
+    try:
+        rec = _timed_runner(eng.runner)
+        reqs = [Request(prompt=p, max_new_tokens=16)
+                for p in served["prompts"]]
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        serve_launches = dict(ops.LAUNCHES)
+        scraped = _scrape(eng.metrics_server.url)
+    finally:
+        eng.close()
+        serve_run.close()
+    serve_events = load_runs(serve_run.directory)[serve_run.run_id]
+    serve_execs = _site_exec_total(serve_events)
+    tokens = scraped[("serve_tokens", "")]
+    scraped_execs = sum(v for (n, _), v in scraped.items()
+                        if n == "site_exec")
+    streams = [r.out for r in reqs]
+    same = sum(a == b for a, b in zip(streams, served["tokens"]))
+    rc, _ = _obs_cli("report", str(serve_run.directory), "--check")
+    print(f"[obs] serve: serve_tokens {tokens:.0f}, prefill site_exec "
+          f"{serve_execs:.0f} (scraped {scraped_execs:.0f}), K1 launches "
+          f"{serve_launches['split_gemm']} (phase 6: "
+          f"{served['launches']}); greedy streams equal to phase 6's for "
+          f"{same} of {len(streams)}; report --check exit {rc}")
+    want_tokens = 16 * len(served["prompts"])
+    if (tokens != want_tokens or serve_execs != scraped_execs
+            or serve_execs != serve_launches["split_gemm"]
+            or serve_execs != served["launches"]
+            or same != len(streams) or rc != 0):
+        fail("obs: serve telemetry disagrees (tokens, site_exec, K1 "
+             "launches, streams or report --check)")
+
+    # Telemetry's cost, host-side readings that spread by tens of
+    # percent between runs: printed, gated on nothing.
+    def rate(r, skip=0):
+        return (sum(r["wave_tokens"][skip:])
+                / (sum(r["wave_ms"][skip:]) / 1e3))
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    on_ms = _median_after_first(report["step_ms"])
+    print(f"[obs] cost on {card}: train step median after the first "
+          f"{on_ms:.1f} ms with telemetry against {trained['step_ms']:.1f} "
+          f"ms without (phase 8), x{on_ms / trained['step_ms']:.3f}; "
+          f"prefill {rate(rec):.1f} tok/s with against "
+          f"{rate(served['rec']):.1f} without (phase 6), "
+          f"x{rate(rec) / rate(served['rec']):.3f}; after the first wave "
+          f"(whose telemetry declares the sites) {rate(rec, 1):.1f} "
+          f"against {rate(served['rec'], 1):.1f}, "
+          f"x{rate(rec, 1) / rate(served['rec'], 1):.3f}")
+    del eng, model
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    print(f"[obs] phase {time.perf_counter() - t0:.1f} s")
+    return {key: launches[key] + serve_launches[key] for key in launches}
+
+
 def phase_init():
     """Seeded parameters (``repro_torch.models.prng``) on the card against
     the CPU, to the bit, for the ``tiny`` config at two seeds, and the
@@ -1556,7 +1895,7 @@ def phase_k1_timings(errs, launches, shapes):
     the main paths call, its device time (``device_ms``), its bound (int8 ops
     2*m*n*k*P against bytes s*(m*k + k*n) + 8*m*n), the FP64
     torch.matmul it stands in for, the P pair products as torch._int_mm,
-    and (s = 6) its plain version.  Returns its JSON rows."""
+    and its plain version.  Returns its JSON rows."""
     from repro_torch.core.ozaki import num_pair_gemms, slice_matrix
     from repro_torch.kernels import ops, tile_model
 
@@ -1587,13 +1926,12 @@ def phase_k1_timings(errs, launches, shapes):
                                    for i, j in zip(ii, jj)], 10)
         ops_count = 2 * m * n * k * pairs
         bound_ms, bound_by = bound(ops_count, s * (m * k + k * n) + 8 * m * n)
-        plain_ms = (timed(lambda: ops.split_gemm_kmajor_plain(
-            a_sl, b_t, s, block_k=bk), 3) if s == 6 else None)
+        plain_ms = timed(lambda: ops.split_gemm_kmajor_plain(
+            a_sl, b_t, s, block_k=bk), 3)
         print(f"[time] split_gemm (K1) at (m,k,n)=({m},{k},{n}) s={s} "
               f"{plan_label(plan)}: {ms:.4f} ms (kernel on the device "
-              f"{fmt_ms(dev_ms)}), plain "
-              + (f"{plain_ms:.4f} ms" if plain_ms else "not timed")
-              + f", bound {bound_ms:.4f} ms ({bound_by}), f64 torch.matmul "
+              f"{fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), f64 torch.matmul "
               f"{library_ms:.4f} ms, {pairs} torch._int_mm {int_mm_ms:.4f} "
               f"ms, {ops_count / ms / 1e9:.1f} int8 TOPS", flush=True)
         rows.append({
@@ -1655,7 +1993,7 @@ def phase_timings(errs, launches, m=256, k=256, n=4096):
             ms = timed(kernel, 50)
             dev_ms = device_ms(kernel)
             bound_ms, bound_by = bound(ops_count, nbytes)
-            plain_ms = timed(plain, 5) if s == 6 else None
+            plain_ms = timed(plain, 5)
             print(f"[time] {name} at (m,k,n)=({m},{k},{n}) s={s}: "
                   f"{ms:.4f} ms (kernel on the device {fmt_ms(dev_ms)}), "
                   f"plain "
@@ -1967,7 +2305,8 @@ def main():
     phase_profile("pallas_int8_6")
     phase_profile("pallas_int8_6:fused")
     v1_launches = phase_v1_ab(errs)
-    serve_launches = phase_serve(checked_kn)
+    serve_launches, served = phase_serve(checked_kn)
+    served["launches"] = serve_launches["split_gemm"]
     torch.cuda.empty_cache()
     phase_lm_ladder()
     torch.cuda.empty_cache()
@@ -1975,14 +2314,18 @@ def main():
     torch.cuda.empty_cache()
     tune_launches, tune_pairs = phase_tune(errs, trained)
     torch.cuda.empty_cache()
-    # Launch counts per kernel: the main paths' runs (MuST, serve, train
-    # and the tune phase's plan-driven train and serve) and K3's A/B
-    # path, each read with the counters zeroed before it.
+    obs_launches = phase_obs(served, trained)
+    torch.cuda.empty_cache()
+    # Launch counts per kernel: the main paths' runs (MuST, serve, train,
+    # the tune phase's plan-driven train and serve, and both again with
+    # telemetry on) and K3's A/B path, each read with the counters zeroed
+    # before it.
     total = {key: launches[key] + serve_launches[key] + v1_launches[key]
-             + train_launches[key] + tune_launches[key] for key in launches}
+             + train_launches[key] + tune_launches[key] + obs_launches[key]
+             for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
-          f"train {train_launches}, tune {tune_launches}, v1 A/B "
-          f"{v1_launches}")
+          f"train {train_launches}, tune {tune_launches}, obs "
+          f"{obs_launches}, v1 A/B {v1_launches}")
     shapes = k1_timed_shapes()
     shapes += [pair for pair in tune_pairs if pair not in shapes][:3]
     rows = (phase_k1_timings(errs, total, shapes)

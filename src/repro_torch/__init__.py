@@ -23,7 +23,10 @@ Package map:
   * ``repro_torch.launch``  — the trainer, ``python -m
     repro_torch.launch.train``;
   * ``repro_torch.tune``    — precision plans: calibrate, solve, the
-    plan artifact, ``python -m repro_torch.tune``.
+    plan artifact, ``python -m repro_torch.tune``;
+  * ``repro_torch.obs``     — telemetry: metrics registry, spans, JSONL
+    runs, the numerics drift probe, live ``/metrics``, cost attribution,
+    ``python -m repro_torch.obs``.
 """
 
 __version__ = "0.1.0"

@@ -59,8 +59,24 @@ does; a product whose output does not reach the pass's outputs, or an
 operand whose gradient leads to none of its inputs, gets no cotangent
 site, as the reference's jaxpr has none.
 
-Not ported yet: ``cond``/``while``/``shard_map`` scopes,
-``persist_dir`` and ``on_site_event`` (ROADMAP).
+Telemetry.  ``offload(..., on_site_event=handler)`` calls ``handler``
+on the host with one payload dict per *execution* of an offloaded
+site's GEMM — the reference's keys (site, backend, splits, shapes,
+extents, flops, tiles; the dtype by its numpy name), built once per
+site and call of ``fn`` when the site is decided, and handed over as a
+copy.  The port is eager, so the hook fires where the product runs:
+once per :func:`scan` iteration, and for each backward site once per
+execution of its cotangent product, on autograd's device thread when
+the tensors are on the card (handlers must be thread-safe, as
+:class:`repro_torch.obs.MetricsRun`'s is).  It reads nothing from the
+device, so it adds no synchronization.  The reference stages a
+zero-operand ``jax.debug.callback`` instead, which under reverse-mode
+AD reports a loop-body site once per step (ROADMAP section 3).  A
+gradient taken after ``fn`` returned runs through the forward site's
+engine and fires nothing, as the reference's ``custom_vjp`` does.
+
+Not ported yet: ``cond``/``while``/``shard_map`` scopes and
+``persist_dir`` (ROADMAP items 4, 9 and 8).
 """
 
 from __future__ import annotations
@@ -83,6 +99,23 @@ __all__ = ["offload", "scan", "site_report", "Site"]
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
+
+
+def _site_payload(site: "Site", default_backend: str) -> dict:
+    """The hook's static payload for ``site``: the reference's keys."""
+    return {
+        "site": site.name,
+        "backend": site.backend or default_backend,
+        "splits": int(site.splits),
+        "lhs_shape": list(site.lhs_shape),
+        "rhs_shape": list(site.rhs_shape),
+        "dtype": _dtype_name(site.dtype),
+        "m": site.m, "k": site.k, "n": site.n,
+        "batch": site.batch, "mult": site.mult,
+        "spmd_axes": [list(ax) for ax in site.spmd_axes],
+        "flops": site.flops,
+        "tiles": dict(site.tiles) if site.tiles else None,
+    }
 
 
 class Site:
@@ -664,9 +697,12 @@ class _OffloadMode(TorchFunctionMode):
     """Catches matmul calls, names them ``dot{i}``, routes the offloaded."""
 
     def __init__(self, policy: PrecisionPolicy, engine_for, execute: bool,
-                 authoritative: bool = False):
+                 authoritative: bool = False, on_site_event=None):
         super().__init__()
         self.policy = policy
+        self.on_site_event = on_site_event
+        # Per site name: the hook's payload, built when it is decided.
+        self.payloads: Dict[str, dict] = {}
         self.engine_for = engine_for
         self.execute = execute
         # The engine runs every eligible site, demoted ones too.
@@ -794,6 +830,7 @@ class _OffloadMode(TorchFunctionMode):
                                  prod.mult)
                 scope.dots += 1
                 self.sites.append(site)
+                self._note_payload(site)
                 found[(j, which)] = site
         self.backward[prefix] = found
         return found
@@ -801,9 +838,23 @@ class _OffloadMode(TorchFunctionMode):
     def _engine_runs(self, site: Site) -> bool:
         return site.offloaded or (self.authoritative and site.eligible)
 
+    def _note_payload(self, site: Site) -> None:
+        """Build the hook's payload for a newly decided site."""
+        if (self.on_site_event is not None and site.offloaded
+                and site.name not in self.payloads):
+            self.payloads[site.name] = _site_payload(site,
+                                                     self.policy.backend)
+
+    def _fire(self, site: Site) -> None:
+        """One execution of an offloaded site: call the hook."""
+        if self.on_site_event is not None and site.offloaded:
+            self._note_payload(site)   # a site no earlier run recorded
+            self.on_site_event(dict(self.payloads[site.name]))
+
     def run_site(self, site: Site, a3, b3, out_dtype):
         """One batched product through ``site``'s engine, or natively."""
         if self._engine_runs(site):
+            self._fire(site)
             return _batched(self.engine_for(site), site)(a3, b3, out_dtype)
         return _native(a3, b3, out_dtype)
 
@@ -836,6 +887,7 @@ class _OffloadMode(TorchFunctionMode):
         scope.dots += 1
         if scope.record:
             self.sites.append(site)
+            self._note_payload(site)
         grad = torch.is_grad_enabled()
         needs = (grad and lhs.requires_grad, grad and rhs.requires_grad)
         # In the packed operands' order, which the cotangent sites and
@@ -848,6 +900,8 @@ class _OffloadMode(TorchFunctionMode):
             any(needs) and site.backend == "dgemm"))
         if routed:
             run = _batched(self.engine_for(site), site) if engine else _native
+            if engine:
+                self._fire(site)
             a3, b3 = dims.pack(lhs, rhs)
             y3 = _SiteMatmul.apply(a3, b3, run, dtype, self,
                                    (scope.prefix, j))
@@ -871,7 +925,7 @@ class _OffloadMode(TorchFunctionMode):
 
 def offload(fn, policy: PrecisionPolicy | None = None, *,
             backend: GemmBackend | None = None, plan=None,
-            plan_match: str = "strict"):
+            plan_match: str = "strict", on_site_event=None):
     """Wrap ``fn`` so its large matmuls run through the policy backend.
 
     Every call runs ``fn`` eagerly under the interception mode.  Sites
@@ -899,6 +953,11 @@ def offload(fn, policy: PrecisionPolicy | None = None, *,
     its result is returned.  ``plan_match="subset"`` applies the
     overlapping entries and ignores the rest (``on_unmatched_site=
     "ignore"``), as a serve engine runs a train-calibrated plan.
+
+    ``on_site_event`` is the telemetry hook (see the module docstring):
+    a host callable given one payload dict per execution of an
+    offloaded site, forward and backward —
+    :meth:`repro_torch.obs.MetricsRun.site_event_handler` is one.
     """
     if plan_match not in ("strict", "subset"):
         raise ValueError(f"plan_match must be 'strict' or 'subset', "
@@ -927,7 +986,8 @@ def offload(fn, policy: PrecisionPolicy | None = None, *,
 
     def wrapped(*args, **kwargs):
         mode = _OffloadMode(policy, engine_for, execute=True,
-                            authoritative=authoritative)
+                            authoritative=authoritative,
+                            on_site_event=on_site_event)
         out = mode.run(fn, args, kwargs)
         _check_overrides(policy, mode.sites)
         validate(mode.sites)

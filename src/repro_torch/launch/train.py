@@ -33,13 +33,21 @@ reference:
   that stop into a warning, the way to adopt a freshly tuned plan on an
   existing lineage.
 
+Telemetry (:mod:`repro_torch.obs`) is on by default, as in the
+reference: each invocation writes one ``events-NNNN.jsonl`` run into
+``--metrics-dir`` (default ``<ckpt-dir>/metrics``; ``none`` turns it
+off) — a ``config`` event, the site declarations, every offloaded
+site's executions (the offload's hook, forward and backward), one
+``train_step`` span and one ``step`` event per step, and every
+``--numerics-every`` steps a :class:`~repro_torch.obs.NumericsMonitor`
+check of an emulated run.  ``--metrics-port`` serves the registry live
+at ``/metrics``; ``--metrics-push-url`` pushes it to an aggregating
+server every ``--log-every`` steps.  Inspect a run with ``python -m
+repro_torch.obs report|export|attrib|diff``.
+
 Not ported yet; these raise ``NotImplementedError`` naming their
 ROADMAP item: ``--mesh``, ``--grad-reduce`` other than ``bucketed`` and
-``--bucket-mb`` (item 9, with ``build_sharded_train_step``); and
-telemetry (item 10): ``--metrics-dir`` other than ``none``,
-``--metrics-port`` and ``--metrics-push-url``.  Telemetry is therefore
-off by default here, where the reference turns it on, and
-``--numerics-every`` has nothing to report into.
+``--bucket-mb`` (item 9, with ``build_sharded_train_step``).
 """
 
 from __future__ import annotations
@@ -52,10 +60,11 @@ from typing import List, Optional, Sequence
 import torch
 
 from .._device import resolve_device
-from .._log import get_logger
 from ..configs import get_config
 from ..core import PrecisionPolicy, get_backend, offload
 from ..models import Model
+from ..obs import (MetricsRun, MetricsServer, NumericsMonitor, get_logger,
+                   push_snapshot)
 from ..train import AdamW, SyntheticText, checkpoint
 from ..tune import PrecisionPlan, count_int8_gemms
 
@@ -154,16 +163,24 @@ def _parse(argv):
                     help="default: runs/ckpt/<arch>")
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--metrics-dir", default="none",
-                    help="telemetry directory; only 'none' (telemetry "
-                         "is ROADMAP item 10)")
+    ap.add_argument("--metrics-dir", default="",
+                    help="telemetry directory (repro_torch.obs JSONL "
+                         "runs); default: <ckpt-dir>/metrics; 'none' "
+                         "disables")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="live /metrics server (ROADMAP item 10)")
+                    help="serve the run's registry live at "
+                         "http://127.0.0.1:PORT/metrics (Prometheus "
+                         "text format; 0 = ephemeral port) while "
+                         "training; requires telemetry on")
     ap.add_argument("--metrics-push-url", default="",
-                    help="metrics push target (ROADMAP item 10)")
+                    help="push this process's registry snapshot to an "
+                         "aggregating metrics server (http://host:port"
+                         "/push) every --log-every steps")
     ap.add_argument("--numerics-every", type=int, default=25,
-                    help="NumericsMonitor period; nothing to report into "
-                         "while telemetry is off")
+                    help="NumericsMonitor period: every Nth step "
+                         "re-measure the probe site's realized error "
+                         "against a float64 matmul (emulated runs with "
+                         "telemetry on); 0 disables")
     return ap.parse_args(argv)
 
 
@@ -172,9 +189,6 @@ def _refuse_unported(args) -> None:
         (args.mesh, "--mesh", 9),
         (args.grad_reduce != "bucketed", "--grad-reduce", 9),
         (args.bucket_mb, "--bucket-mb", 9),
-        (args.metrics_dir != "none", "--metrics-dir", 10),
-        (args.metrics_port is not None, "--metrics-port", 10),
-        (args.metrics_push_url, "--metrics-push-url", 10),
     ]
     for given, flag, item in unported:
         if given:
@@ -297,9 +311,45 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
         "plan_path": args.plan or None,
     }
 
+    # Telemetry (repro_torch.obs): one MetricsRun per invocation,
+    # scoped to the checkpoint lineage by default.
+    metrics = None
+    if args.metrics_dir != "none":
+        metrics = MetricsRun(args.metrics_dir or f"{ckpt_dir}/metrics")
+        metrics.event("config", arch=args.arch, steps=args.steps,
+                      start=start, seq_len=args.seq_len,
+                      global_batch=args.global_batch,
+                      backend=args.backend or None,
+                      plan=args.plan or None, mesh=args.mesh or None)
+    # Live observability: a pull endpoint over this run's registry
+    # and/or periodic pushes into another process's aggregator.
+    mserver = None
+    push_url = args.metrics_push_url if metrics is not None else ""
+    rank = (torch.distributed.get_rank()
+            if torch.distributed.is_available()
+            and torch.distributed.is_initialized() else 0)
+    push_source = f"train-proc{rank}"
+    if metrics is not None and args.metrics_port is not None:
+        mserver = MetricsServer(metrics.registry, port=args.metrics_port,
+                                runs_dir=metrics.directory).start()
+        log.info(f"live metrics: {mserver.url}/metrics")
+        if report is not None:
+            report["metrics_url"] = mserver.url
+
+    def push_metrics() -> None:
+        if not push_url:
+            return
+        try:
+            push_snapshot(push_url, push_source, metrics.registry)
+        except OSError as e:
+            log.warning(f"metrics push to {push_url} failed: {e}")
+
+    on_site_event = metrics.site_event_handler() if metrics else None
+    monitor = None
     policy = None
     if plan is not None:
-        step_fn = offload(train_step, plan=plan, plan_match="strict")
+        step_fn = offload(train_step, plan=plan, plan_match="strict",
+                          on_site_event=on_site_event)
         policy = step_fn.policy
         log.info(f"precision plan {args.plan} "
                  f"({plan.fingerprint}, backend={plan.backend}, "
@@ -314,7 +364,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
         policy = PrecisionPolicy(backend=args.backend, min_dim=args.min_dim,
                                  **({"default_splits": pinned}
                                     if pinned else {}))
-        step_fn = offload(train_step, policy)
+        step_fn = offload(train_step, policy, on_site_event=on_site_event)
         log.info(f"backend={args.backend} min_dim={args.min_dim} "
                  f"({cfg.num_params() / 1e6:.1f}M params)")
     if policy is not None:
@@ -322,6 +372,15 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
         _describe_sites(sites)
         int8_per_step = count_int8_gemms(sites)
         offload_log.info(f"{int8_per_step} INT8 GEMMs per step")
+        if metrics is not None:
+            metrics.declare_sites(sites)
+            if args.numerics_every > 0:
+                monitor = NumericsMonitor(
+                    train_step, plan=plan,
+                    policy=None if plan is not None else policy,
+                    every=args.numerics_every,
+                    registry=metrics.registry, sink=metrics.sink,
+                    log=log)
     else:
         step_fn, sites, int8_per_step = train_step, [], 0
     if report is not None:
@@ -330,25 +389,56 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
 
     losses: List[float] = []
     t_last = time.perf_counter()
-    for step in range(start, args.steps):
-        batch = batch_at(step)
-        t_step = time.perf_counter()
-        params, opt_state, loss = step_fn(params, opt_state, batch)
-        losses.append(float(loss))
-        if report is not None:
-            report["step_ms"].append((time.perf_counter() - t_step) * 1e3)
-        if step == start or (step + 1) % args.log_every == 0 \
-                or step + 1 == args.steps:
-            now = time.perf_counter()
-            log.info(f"step {step + 1}/{args.steps} "
-                     f"loss={losses[-1]:.4f} ({(now - t_last) * 1e3:.0f} ms)")
-            t_last = now
-        if (step + 1) % args.ckpt_every == 0:
-            checkpoint.save(ckpt_dir, step + 1, (params, opt_state),
-                            meta=ckpt_meta)
-    checkpoint.save(ckpt_dir, args.steps, (params, opt_state),
-                    meta=ckpt_meta)
+    try:
+        for step in range(start, args.steps):
+            batch = batch_at(step)
+            if monitor is not None:
+                monitor.maybe_check(step, params, opt_state, batch)
+            t_step = time.perf_counter()
+            if metrics is not None:
+                with metrics.tracer.span("train_step", step=step + 1):
+                    params, opt_state, loss = step_fn(params, opt_state,
+                                                      batch)
+                    # Reading the loss back waits for the device: the
+                    # span measures the whole step, not its dispatch.
+                    losses.append(float(loss))
+            else:
+                params, opt_state, loss = step_fn(params, opt_state, batch)
+                losses.append(float(loss))
+            step_ms = (time.perf_counter() - t_step) * 1e3
+            if report is not None:
+                report["step_ms"].append(step_ms)
+            if metrics is not None:
+                metrics.event("step", step=step + 1, loss=losses[-1],
+                              ms=step_ms, int8_gemms=int8_per_step)
+            if step == start or (step + 1) % args.log_every == 0 \
+                    or step + 1 == args.steps:
+                now = time.perf_counter()
+                log.info(f"step {step + 1}/{args.steps} "
+                         f"loss={losses[-1]:.4f} "
+                         f"({(now - t_last) * 1e3:.0f} ms)")
+                t_last = now
+                push_metrics()
+            if (step + 1) % args.ckpt_every == 0:
+                checkpoint.save(ckpt_dir, step + 1, (params, opt_state),
+                                meta=ckpt_meta)
+        checkpoint.save(ckpt_dir, args.steps, (params, opt_state),
+                        meta=ckpt_meta)
+    finally:
+        if metrics is not None:
+            # The site hook runs as each product is issued (backward
+            # ones on autograd's threads, done when the step returns),
+            # so the execution counters are complete here.
+            push_metrics()
+            metrics.close()
+        if mserver is not None:
+            mserver.close()
     log.info(f"done at step {args.steps}; checkpoint in {ckpt_dir}")
+    if metrics is not None:
+        log.info(f"telemetry: {metrics.sink.path} (inspect with "
+                 f"python -m repro_torch.obs report {metrics.directory})")
+        if report is not None:
+            report["metrics_dir"] = str(metrics.directory)
     return losses
 
 

@@ -27,23 +27,38 @@ Tunable-precision serving: pass ``plan=`` (a
 encodes, in subset mode: a train-calibrated plan carries backward-pass
 sites the serving programs never run, and those entries are ignored.
 
-Not ported: ``mesh``, ``metrics``, ``metrics_port`` and
-``warm_cache_dir`` raise ``NotImplementedError``.
+Telemetry, as in the reference: pass ``metrics=`` (a
+:class:`repro_torch.obs.MetricsRun`) for the per-site ``site_exec``
+hook on the offloaded programs, ``prefill`` / ``decode_tick`` spans,
+per-request latency histograms (``serve_admission_wait_s``,
+``serve_prefill_s``, ``serve_ttft_s``, ``serve_latency_slack_s``) and
+``request`` events, the ``serve_tokens`` counter, the
+``serve_slot_occupancy`` gauge, the scheduler's queue and the KV
+cache's block gauges, and TTFT against ``latency_target_s`` feeding an
+:class:`~repro_torch.obs.SLOTracker`; ``metrics_port=`` also serves the
+run's registry live at ``/metrics``.
+
+Not ported: ``mesh`` (ROADMAP item 9) and ``warm_cache_dir`` (item 8)
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import numpy as np
 
 from ..core import PrecisionPolicy
 from ..models import Model
+from ..obs import MetricsServer, SLOTracker, get_logger
 from .kvcache import DenseKVCache, PagedKVCache
 from .runner import Runner, _not_ported
 from .scheduler import Request, SamplingParamError, Scheduler
 
 __all__ = ["Engine", "Request", "SamplingParamError"]
+
+log = get_logger("serve")
 
 
 class Engine:
@@ -71,6 +86,15 @@ class Engine:
       chunk_tokens: prefill chunk length (``None``: whole prompts).
       chunk_token_budget: cap on real tokens per prefill wave.
       scheduler_policy: ``"fifo"`` (default) or ``"edf"``.
+      metrics: optional :class:`repro_torch.obs.MetricsRun` (see the
+        module docstring).
+      metrics_port: start a live :class:`repro_torch.obs.MetricsServer`
+        on this port (0 = ephemeral; read it back from
+        ``engine.metrics_server.port``) serving the run's registry at
+        ``/metrics`` while the engine runs.  Requires ``metrics=``.
+      slo_objective / slo_window_s: the serve SLO — per-request TTFT
+        vs ``latency_target_s`` feeds a rolling burn-rate gauge
+        (``slo_burn_rate``); only active with ``metrics=``.
       device: must be the model's device when given.
     """
 
@@ -85,10 +109,10 @@ class Engine:
                  warm_cache_dir=None,
                  scheduler_policy: str = "fifo",
                  metrics_port: Optional[int] = None,
+                 slo_objective: float = 0.99,
+                 slo_window_s: float = 60.0,
                  device=None):
-        _not_ported(mesh=mesh, metrics=metrics,
-                    metrics_port=metrics_port,
-                    warm_cache_dir=warm_cache_dir)
+        _not_ported(mesh=mesh, warm_cache_dir=warm_cache_dir)
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; "
                              "have ('paged', 'dense')")
@@ -96,6 +120,7 @@ class Engine:
             raise ValueError(f"device={device} but the model lives on "
                              f"{model.device}")
         self.model = model
+        self.metrics = metrics
         self.batch_slots = int(batch_slots)
         self.max_len = int(max_len)
         self.params = params
@@ -106,19 +131,40 @@ class Engine:
                                                on_unmatched_site="ignore")
         self.plan = plan
         self.policy = policy
+        registry = metrics.registry if metrics is not None else None
         if kv_layout == "paged":
             self.kv = PagedKVCache(model, self.batch_slots, self.max_len,
                                    block_size=block_size,
-                                   num_blocks=num_blocks)
+                                   num_blocks=num_blocks,
+                                   registry=registry)
         else:
-            self.kv = DenseKVCache(model, self.batch_slots, self.max_len)
+            self.kv = DenseKVCache(model, self.batch_slots, self.max_len,
+                                   registry=registry)
         self.runner = Runner(
             model, params, self.kv, max_len=self.max_len, policy=policy,
-            plan=plan, chunk_tokens=chunk_tokens,
+            plan=plan, metrics=metrics, chunk_tokens=chunk_tokens,
             chunk_token_budget=chunk_token_budget)
-        self.scheduler = Scheduler(self.max_len, policy=scheduler_policy)
+        self.slo = None
+        if metrics is not None:
+            self.slo = SLOTracker(registry=metrics.registry,
+                                  objective=slo_objective,
+                                  window_s=slo_window_s,
+                                  sink=metrics.sink)
+        self.scheduler = Scheduler(self.max_len, policy=scheduler_policy,
+                                   metrics=metrics, slo=self.slo)
+        self.metrics_server = None
+        if metrics_port is not None:
+            if metrics is None:
+                raise ValueError("metrics_port requires metrics= (the "
+                                 "server exposes that run's registry)")
+            self.metrics_server = MetricsServer(
+                metrics.registry, port=metrics_port,
+                runs_dir=metrics.directory).start()
         self.slots: List[Optional[Request]] = [None] * self.batch_slots
         self._next_token = np.zeros(self.batch_slots, np.int32)
+        # Per-request latency bookkeeping, keyed by request identity
+        # (Request is a plain mutable dataclass, not hashable by value).
+        self._rstats: dict = {}
 
     # -- introspection -----------------------------------------------
 
@@ -157,7 +203,30 @@ class Engine:
         res = self.runner.prefill_wave()
         if res is None:
             return
+        if self.metrics is not None:
+            log.debug(f"prefill wave: {len(res.pieces)} chunks, "
+                      f"{res.real_tokens} tokens "
+                      f"(padded {res.rows}x{res.width}) in "
+                      f"{res.duration_s * 1e3:.1f} ms")
+            t_wave = time.perf_counter() - res.duration_s
+            for _, req, _ in res.pieces:
+                st = self._rstats.get(id(req))
+                if st is None:
+                    continue
+                if "t_admit" not in st:
+                    # First chunk of this request to reach a device.
+                    st["t_admit"] = t_wave
+                    st["admission_wait_s"] = t_wave - st["t_enqueue"]
+                    self.metrics.registry.histogram(
+                        "serve_admission_wait_s").observe(
+                        st["admission_wait_s"])
+                st["prefill_s"] = (st.get("prefill_s", 0.0)
+                                   + res.duration_s)
         for slot, req, token in res.completed:
+            st = self._rstats.get(id(req))
+            if st is not None:
+                self.metrics.registry.histogram(
+                    "serve_prefill_s").observe(st["prefill_s"])
             self._emit(slot, req, token)
 
     def _decode_tick(self) -> None:
@@ -166,6 +235,13 @@ class Engine:
             for slot, req in enumerate(self.slots)])
         if not active.any():
             return
+        if self.metrics is not None:
+            self.metrics.registry.gauge("serve_slot_occupancy").set(
+                int(active.sum()))
+            for slot in np.flatnonzero(active):
+                st = self._rstats.get(id(self.slots[slot]))
+                if st is not None:
+                    st["decode_ticks"] = st.get("decode_ticks", 0) + 1
         nxt = self.runner.decode_tick(self._next_token, active,
                                       self.slots)
         for slot in np.flatnonzero(active):
@@ -173,6 +249,22 @@ class Engine:
 
     def _emit(self, slot: int, req: Request, token: int) -> None:
         req.out.append(token)
+        st = self._rstats.get(id(req))
+        if st is not None and "ttft_s" not in st:
+            # First emitted token (from the final prefill chunk), read
+            # back to the host already: the time covers the device work.
+            st["ttft_s"] = time.perf_counter() - st["t_enqueue"]
+            self.metrics.registry.histogram(
+                "serve_ttft_s").observe(st["ttft_s"])
+            if req.latency_target_s is not None:
+                slack = req.latency_target_s - st["ttft_s"]
+                self.metrics.registry.histogram(
+                    "serve_latency_slack_s").observe(slack)
+                if slack < 0:
+                    self.metrics.registry.counter(
+                        "serve_latency_miss").inc()
+            if self.slo is not None:
+                self.slo.observe(st["ttft_s"], req.latency_target_s)
         self._next_token[slot] = token
         eos = self.model.cfg.eos_id
         length_next = len(req.prompt) + len(req.out)
@@ -183,6 +275,27 @@ class Engine:
             self.slots[slot] = None
             self.kv.release(slot)
             self.scheduler.forget(req)
+            if st is not None:
+                self._finish(req, st)
+
+    def _finish(self, req: Request, st: dict) -> None:
+        """Finalize one request's telemetry: the ``request`` event."""
+        gen_s = time.perf_counter() - st.get("t_admit", st["t_enqueue"])
+        tokens_per_s = len(req.out) / max(gen_s, 1e-9)
+        self.metrics.registry.counter("serve_tokens").inc(len(req.out))
+        self.metrics.event(
+            "request", prompt_len=len(req.prompt),
+            new_tokens=len(req.out),
+            admission_wait_s=st.get("admission_wait_s"),
+            prefill_s=st.get("prefill_s"), ttft_s=st.get("ttft_s"),
+            decode_ticks=st.get("decode_ticks", 0),
+            tokens_per_s=tokens_per_s,
+            latency_target_s=req.latency_target_s)
+        log.debug(f"request done: {len(req.prompt)} prompt + "
+                  f"{len(req.out)} new tokens, "
+                  f"ttft {st.get('ttft_s', 0) * 1e3:.1f} ms, "
+                  f"{tokens_per_s:.1f} tok/s")
+        self._rstats.pop(id(req), None)
 
     # -- public API --------------------------------------------------
 
@@ -194,9 +307,23 @@ class Engine:
         admitted as earlier ones finish.
         """
         self.scheduler.submit(requests)
+        if self.metrics is not None:
+            for req in requests:
+                self._rstats[id(req)] = {
+                    "t_enqueue": self.scheduler.t_enqueue(req)}
         while (self.scheduler.pending or
                any(r is not None for r in self.slots)):
             self._admit()
             self._prefill_tick()
             self._decode_tick()
+        if self.metrics is not None:
+            # The site hook runs on the host as each product is issued,
+            # so the execution counters are complete here.
+            self.metrics.registry.gauge("serve_slot_occupancy").set(0)
         return requests
+
+    def close(self) -> None:
+        """Stop the live metrics server, if one was started."""
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None

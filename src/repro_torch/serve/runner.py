@@ -17,13 +17,24 @@ written in-rectangle; the paged layout routes padding to the trash
 block.
 
 A precision plan runs in subset mode: the programs take the plan's
-entries for the sites they have and ignore the rest.  Not ported:
-meshes, the persistent transform cache (``warm_cache_dir``) and
-metrics; passing any of them raises ``NotImplementedError``.
+entries for the sites they have and ignore the rest.
+
+Telemetry (``metrics=``, a :class:`repro_torch.obs.MetricsRun`): the
+offloaded programs carry the run's ``site_exec`` hook, each prefill
+wave and decode tick is a ``prefill`` / ``decode_tick`` span that ends
+after the sampled tokens are read back to the host (so it covers the
+device's work, CUDA being asynchronous), and the first wave declares
+the prefill program's sites (``site_decl``), found by a native
+``site_report`` pass over zero inputs of the wave's shape.
+
+Not ported: meshes (ROADMAP item 9) and the persistent transform cache
+(``warm_cache_dir``, item 8); passing either raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional
@@ -65,11 +76,16 @@ class WaveResult:
     duration_s: float
 
 
+#: The ROADMAP item that ports each refused option.
+_ROADMAP_ITEM = {"mesh": 9, "warm_cache_dir": 8}
+
+
 def _not_ported(**options) -> None:
     given = sorted(name for name, val in options.items() if val is not None)
     if given:
         raise NotImplementedError(
-            f"{', '.join(given)}: not ported to repro_torch yet (ROADMAP)")
+            "; ".join(f"{name}: not ported to repro_torch yet (ROADMAP "
+                      f"item {_ROADMAP_ITEM[name]})" for name in given))
 
 
 class Runner:
@@ -79,9 +95,10 @@ class Runner:
                  policy=None, chunk_tokens: Optional[int] = None,
                  chunk_token_budget: Optional[int] = None, mesh=None,
                  plan=None, metrics=None, warm_cache_dir=None):
-        _not_ported(mesh=mesh, metrics=metrics,
-                    warm_cache_dir=warm_cache_dir)
+        _not_ported(mesh=mesh, warm_cache_dir=warm_cache_dir)
         self.model = model
+        self.metrics = metrics
+        self._declared = False
         self.plan = plan
         self.params = params
         self.kv = kv
@@ -114,11 +131,28 @@ class Runner:
     # -- program wiring ----------------------------------------------
 
     def _wrap(self, fn):
-        """The program as called: offloaded under a policy, else plain."""
+        """The program as called: offloaded under a policy (with the
+        run's site hook when metrics are on), else plain."""
         if self.policy is None:
             return fn
+        hook = (self.metrics.site_event_handler()
+                if self.metrics is not None else None)
         return offload(fn, self.policy, plan=self.plan,
-                       plan_match="subset")
+                       plan_match="subset", on_site_event=hook)
+
+    def _span(self, name, **kw):
+        if self.metrics is None:
+            return contextlib.nullcontext()
+        return self.metrics.tracer.span(name, **kw)
+
+    def _declare_once(self, rows: int, width: int) -> None:
+        """First wave: record the prefill program's site decisions, so
+        ``python -m repro_torch.obs report --check`` can hold execution
+        counts against them."""
+        if self.metrics is None or self.policy is None or self._declared:
+            return
+        self.metrics.declare_sites(self.sites_for(rows, width))
+        self._declared = True
 
     def _tensor(self, array) -> torch.Tensor:
         return torch.as_tensor(array, device=self.device)
@@ -214,9 +248,11 @@ class Runner:
         if not self._pending:
             return None
         pieces = self._pack()
-        t0 = time.perf_counter()
         width = max(take for _, _, take in pieces)
         rows = n = len(pieces)
+        # Before the clock starts: the wave's duration is the wave's.
+        self._declare_once(rows, width)
+        t0 = time.perf_counter()
         tokens = np.zeros((rows, width), np.int32)
         start = np.zeros((rows,), np.int32)
         piece = np.ones((rows,), np.int32)
@@ -224,35 +260,39 @@ class Runner:
             tokens[i, :take] = st.tokens[st.pos:st.pos + take]
             start[i] = st.pos
             piece[i] = take
-        with torch.no_grad():
-            if self.layout == "paged":
-                logits = self._wave_paged(pieces, tokens, start, piece,
-                                          rows)
-            else:
-                logits = self._wave_dense(pieces, tokens, start, piece)
-        # Scatter the new per-slot lengths (host-known): decoding
-        # neighbours keep theirs, wave slots move to their chunk end —
-        # which also parks the dense layout's masked decode writes at a
-        # position the next chunk overwrites first.
-        ends = np.array([st.pos + take for _, st, take in pieces], np.int32)
-        slots = self._tensor(np.array([s for s, _, _ in pieces]))
-        length = self.cache["length"].clone()
-        length[slots.to(torch.long)] = self._tensor(ends)
-        self.cache = dict(self.cache, length=length)
-        completed = []
-        done_rows = []
-        reqs_rows = [None] * n
-        for i, (slot, st, take) in enumerate(pieces):
-            self._len[slot] = st.pos + take
-            st.pos += take
-            if st.remaining == 0:
-                del self._pending[slot]
-                done_rows.append(i)
-                reqs_rows[i] = st.req
-        toks = self._sample(logits[:n], reqs_rows)
-        for i in done_rows:
-            slot, st, _ = pieces[i]
-            completed.append((slot, st.req, int(toks[i])))
+        with self._span("prefill", rows=rows, padded_len=width, chunks=n):
+            with torch.no_grad():
+                if self.layout == "paged":
+                    logits = self._wave_paged(pieces, tokens, start, piece,
+                                              rows)
+                else:
+                    logits = self._wave_dense(pieces, tokens, start, piece)
+            # Scatter the new per-slot lengths (host-known): decoding
+            # neighbours keep theirs, wave slots move to their chunk end
+            # — which also parks the dense layout's masked decode writes
+            # at a position the next chunk overwrites first.
+            ends = np.array([st.pos + take for _, st, take in pieces],
+                            np.int32)
+            slots = self._tensor(np.array([s for s, _, _ in pieces]))
+            length = self.cache["length"].clone()
+            length[slots.to(torch.long)] = self._tensor(ends)
+            self.cache = dict(self.cache, length=length)
+            completed = []
+            done_rows = []
+            reqs_rows = [None] * n
+            for i, (slot, st, take) in enumerate(pieces):
+                self._len[slot] = st.pos + take
+                st.pos += take
+                if st.remaining == 0:
+                    del self._pending[slot]
+                    done_rows.append(i)
+                    reqs_rows[i] = st.req
+            # _sample reads the tokens back to the host, which waits for
+            # the device: the span (and prefill_s) covers the wave.
+            toks = self._sample(logits[:n], reqs_rows)
+            for i in done_rows:
+                slot, st, _ = pieces[i]
+                completed.append((slot, st.req, int(toks[i])))
         self.waves_total += 1
         self.padded_tokens_total += rows * width
         self.real_tokens_total += int(sum(t for _, _, t in pieces))
@@ -299,10 +339,12 @@ class Runner:
             for slot in np.flatnonzero(active):
                 self.kv.ensure(int(slot), int(self._len[slot]) + 1)
             self.cache = self.kv.sync_table(self.cache)
-        with torch.no_grad():
-            self.cache, logits = self._decode_call(
-                self.params, self.cache, self._tensor(next_token),
-                self._tensor(active))
-        toks = self._sample(logits, reqs)
+        with self._span("decode_tick", active=int(active.sum())):
+            with torch.no_grad():
+                self.cache, logits = self._decode_call(
+                    self.params, self.cache, self._tensor(next_token),
+                    self._tensor(active))
+            # Reads the tokens back: the span covers the device step.
+            toks = self._sample(logits, reqs)
         self._len[active] += 1
         return toks

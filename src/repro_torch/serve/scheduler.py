@@ -25,8 +25,8 @@ Validation happens at submission with :class:`SamplingParamError` (a
 ever costs a prefill.
 
 The port's copy of :mod:`repro.serve.scheduler` (the module is
-framework-free); ``metrics`` and ``slo`` stay ``None`` until the
-port's observability layer exists.
+framework-free); the engine hands it the run's ``metrics`` and its
+:class:`repro_torch.obs.SLOTracker` as ``slo``.
 """
 
 from __future__ import annotations

@@ -30,10 +30,10 @@ from typing import List, Optional, Sequence
 import torch
 
 from .._device import resolve_device
-from .._log import get_logger
 from ..configs import get_config
 from ..core import PrecisionPolicy, get_backend
 from ..models import Model
+from ..obs.log import get_logger
 from ..train import AdamW, SyntheticText
 from .calibrate import Calibrator
 from .plan import write_tiles_table

@@ -382,3 +382,39 @@ def test_seeded_init_card_equals_cpu(seed):
     card = tree_flatten(Model(cfg, device="cuda", seed=seed).params)
     for a, b in zip(cpu, card):
         assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 960, 2560), (256, 256, 4096)])
+def test_site_hook_adds_no_synchronization(m, k, n):
+    # An emulated GEMM with the telemetry hook issues no synchronizing
+    # call (the hook's payload is built on the host), and the hook fires
+    # once per K1 launch, in a scan of two iterations too.
+    from repro_torch.core import PrecisionPolicy, offload, scan
+    from repro_torch.obs import Registry
+
+    a, b = _operands(m, k, n, 5, torch.float32)
+    xs = torch.stack(_operands(k, k, k, 6, torch.float32))
+    reg = Registry()
+
+    def hook(payload):
+        reg.counter("site_exec", site=payload["site"]).inc()
+
+    fn = offload(lambda a, b, xs: (a @ b, scan(lambda c, x: (c @ x, None),
+                                               a, xs)[0]),
+                 PrecisionPolicy(backend="pallas_int8_6"),
+                 on_site_event=hook)
+    fn(a, b, xs)   # warm: K1's plan and tensor maps
+    before = ops.LAUNCHES["split_gemm"]
+    fired = sum(s["value"] for s in reg.snapshot())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(a, b, xs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launched = ops.LAUNCHES["split_gemm"] - before
+    counts = {s["labels"]["site"]: s["value"] for s in reg.snapshot()}
+    assert launched == 3
+    assert sum(counts.values()) - fired == launched
+    assert counts == {"dot0": 2, "scan0/dot0": 4}
