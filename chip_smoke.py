@@ -69,7 +69,21 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    serves phase 6's requests through ``Engine(metrics=...,
    metrics_port=0)``, and prints telemetry's cost beside the runs
    without it;
-11. prints one JSON line describing every ported kernel (K1 once per
+11. warm-starts it: serves phase 6's requests twice, each from a fresh
+   ``Engine(warm_cache_dir=build/warm_cache, metrics=...)``; the second
+   run must read every offload decision back from disk (byte-identical
+   files, no entry decided without one), launch K1 as phase 6 did, emit
+   phase 6's streams, and pass ``obs report --check --expect-cache-hit``
+   where the first fails it;
+12. runs a float64 control-flow program through ``pallas_int8_6``: a
+   3-trip ``while_loop`` of a 4096^2 product, a ``cond`` called both ways,
+   a 3-operand einsum at the MuST widths and a user
+   ``autograd.Function``; holds the site names and extents against the
+   reference's (``CF_SITES``), K1's launches against the hook's count,
+   the errors against the a-priori bound, the ``Function``'s opacity and
+   zero gradient, and prints the loop's roofline
+   (``repro_torch.analysis.roofline``) beside its measured time;
+13. prints one JSON line describing every ported kernel (K1 once per
    timed shape, the plan's three most-launched pairs among them), the
    card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -121,9 +135,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W limit).
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
 FERMI = 0.72
 SPLITS = (3, 6, 9)
 # K2 is also held at the fewest and the most splits it takes.
@@ -1827,6 +1838,302 @@ def phase_obs(served, trained, **overrides):
     return {key: launches[key] + serve_launches[key] for key in launches}
 
 
+WARM_DIR = os.path.join(ROOT, "build", "warm_cache")
+WARM_METRICS = os.path.join(ROOT, "build", "warm_smoke")
+
+
+def _first_wave_ms(runner):
+    """Host ms of the runner's first prefill wave (its site declaration
+    and the read-back included), filled as it runs."""
+    got = {}
+    wave = runner.prefill_wave
+
+    def timed():
+        start = time.perf_counter()
+        res = wave()
+        got.setdefault("ms", (time.perf_counter() - start) * 1e3)
+        return res
+
+    runner.prefill_wave = timed
+    return got
+
+
+def phase_warm_start(served, **overrides):
+    """The serve warm start (``Engine(warm_cache_dir=)``) on phase 6's
+    cell: SmolLM-360M at full width, pallas_int8_6, paged, phase 6's 8
+    requests.
+
+    Two runs, each from a fresh ``Engine`` (a restarted server: the
+    offload decision caches live on its programs' wrappers), both with
+    telemetry on and persisting into ``WARM_DIR``, deleted first.
+    Held: the cold run wrote entries (``disk_misses`` > 0); the warm
+    run read every entry of both programs from disk (``disk_misses`` 0,
+    ``disk_decisions_hits`` > 0) and left the files byte-identical; both
+    runs' greedy streams equal phase 6's; K1's launches and the summed
+    ``site_exec`` equal phase 6's launches; ``python -m repro_torch.obs
+    report --check --expect-cache-hit`` exits 1 on the cold run and 0 on
+    the warm one.  Prints each run's prefill tok/s and its first wave's
+    host ms, findings only.  Returns K1's launches over both runs.
+    """
+    import shutil
+
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRun, load_runs
+    from repro_torch.serve import Engine, Request
+
+    t0 = time.perf_counter()
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    shutil.rmtree(WARM_METRICS, ignore_errors=True)
+    model = _smollm("float32", 3, **overrides)
+    policy = PrecisionPolicy(backend="pallas_int8",
+                             default_splits=served["splits"])
+    total = {key: 0 for key in ops.LAUNCHES}
+    files = []
+    for tag, want_rc in (("cold", 1), ("warm", 0)):
+        run = MetricsRun(os.path.join(WARM_METRICS, tag))
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        eng = Engine(model, model.params, policy=policy, metrics=run,
+                     warm_cache_dir=WARM_DIR, **served["engine_kw"])
+        try:
+            rec = _timed_runner(eng.runner)
+            first = _first_wave_ms(eng.runner)
+            reqs = [Request(prompt=p, max_new_tokens=16)
+                    for p in served["prompts"]]
+            eng.run(reqs)
+            torch.cuda.synchronize()
+        finally:
+            eng.close()
+            run.close()
+        launches = dict(ops.LAUNCHES)
+        for key in total:
+            total[key] += launches[key]
+        info = eng.runner._prefill_wrapped.persist_info()
+        dinfo = eng.runner._decode_wrapped.persist_info()
+        execs = _site_exec_total(load_runs(run.directory)[run.run_id])
+        rc, _ = _obs_cli("report", str(run.directory), "--check",
+                         "--expect-cache-hit")
+        files.append({name: open(os.path.join(WARM_DIR, name), "rb").read()
+                      for name in sorted(os.listdir(WARM_DIR))
+                      if name.endswith(".json")})
+        streams = [r.out for r in reqs]
+        same = sum(a == b for a, b in zip(streams, served["tokens"]))
+        rate = rec["prefill_tokens"] / (rec["prefill_ms"] / 1e3)
+        print(f"[warm] {tag}: prefill {info}, decode {dinfo}; "
+              f"{len(files[-1])} decision files; K1 launches "
+              f"{launches['split_gemm']} (phase 6: {served['launches']}), "
+              f"site_exec {execs:.0f}; streams equal to phase 6's for "
+              f"{same} of {len(streams)}; report --check "
+              f"--expect-cache-hit exit {rc}; prefill {rate:.1f} tok/s, "
+              f"first wave {first['ms']:.1f} ms host")
+        if tag == "cold":
+            ok = info.disk_misses > 0 and dinfo.disk_misses > 0
+        else:
+            ok = all(i.disk_misses == 0 and i.disk_decisions_hits > 0
+                     and i.disk_hits == 0 for i in (info, dinfo))
+        if (not ok or rc != want_rc or same != len(streams)
+                or launches["split_gemm"] != served["launches"]
+                or execs != launches["split_gemm"]
+                or sum(launches.values()) != launches["split_gemm"]):
+            fail(f"warm start, {tag} run: persist {info} / {dinfo}, "
+                 f"report exit {rc} (want {want_rc}), streams {same}, "
+                 f"launches {launches}, site_exec {execs}")
+    if not files[0] or files[0] != files[1]:
+        fail("warm start: the decision files differ between the cold and "
+             "the warm run")
+    del eng, model
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    shutil.rmtree(WARM_METRICS, ignore_errors=True)
+    print(f"[warm] cold and warm decision files byte-identical; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+#: The control-flow program's sites (name, m, k, n) as the reference
+#: lists them: ``repro.core.offload(f, PrecisionPolicy(backend=
+#: "pallas_int8", default_splits=6)).sites(...)`` for the same program
+#: written with ``jax.lax.while_loop``, ``jax.lax.cond`` and
+#: ``jnp.einsum`` at these shapes (float64).
+CF_SITES = [("while0/dot0", 4096, 4096, 4096),
+            ("cond1/br0/dot0", 4096, 256, 4096),
+            ("cond1/br1/dot0", 4096, 256, 4096),
+            ("dot0", 1024, 256, 256),
+            ("dot1", 4096, 256, 1024)]
+CF_SPLITS = 6
+CF_TRIPS = 3
+
+
+class _ZeroGradMatmul(torch.autograd.Function):
+    """A user ``Function`` around a product, with a zero backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return torch.zeros_like(a), torch.zeros_like(b)
+
+
+def _cf_loop(y0, x):
+    from repro_torch.core import while_loop
+
+    return while_loop(lambda v: v[0] < CF_TRIPS,
+                      lambda v: (v[0] + 1, (v[1] @ x) / 64.0), (0, y0))[1]
+
+
+def _cf_program(pred, x, y0, a, b, c, w):
+    """A 3-trip while loop of an n^2 product, a cond, and a 3-operand
+    einsum."""
+    from repro_torch.core import cond
+
+    y = _cf_loop(y0, x)
+    z = cond(pred, lambda t: t @ w, lambda t: (2.0 * t) @ w, a)
+    e = torch.einsum("ij,jk,kl->il", a, b, c)
+    return y, z, e
+
+
+def phase_control_flow(n=4096, block=256):
+    """Control flow and opaque calls through ``offload`` on the card, in
+    float64 through pallas_int8_6 (K1), at the MuST contour's widths
+    (``n`` 4096, ``block`` 256; a rehearsal shrinks them and
+    ``CF_SITES``).
+
+    Held: the program's sites equal ``CF_SITES`` (the reference's names
+    and extents, every branch listed); one call with the cond true and
+    one with it false (the second a cache hit) launch K1 once per
+    executed site, which is what the hook counts; each output within
+    the a-priori bound ``estimate_rel_error(6, k)`` per chained GEMM of
+    native FP64, normalized by the chain of |operands|; a user
+    ``autograd.Function`` around a product is no site, launches no K1,
+    equals the native product and keeps its zero gradient.  Then prints
+    the while loop's roofline (``analyze_cell`` at ``H100_PEAKS``) beside
+    its measured time, emulated and native, and fails if a time is under
+    its bound.  Returns K1's launches of the two calls.
+    """
+    from collections import Counter
+
+    from repro_torch.analysis.roofline import H100_PEAKS, analyze_cell
+    from repro_torch.core import (PrecisionPolicy, estimate_rel_error,
+                                  num_pair_gemms, offload)
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    gen = np.random.default_rng(5)
+
+    def rand(*shape):
+        return torch.from_numpy(gen.standard_normal(shape)).cuda()
+
+    x, y0 = rand(n, n), rand(n, n)
+    a, b, c, w = (rand(n, block), rand(block, block), rand(block, 4 * block),
+                  rand(block, n))
+    args = (x, y0, a, b, c, w)
+    policy = PrecisionPolicy(backend="pallas_int8", default_splits=CF_SPLITS)
+    hooked = Counter()
+    prog = offload(_cf_program, policy,
+                   on_site_event=lambda p: hooked.update([p["site"]]))
+    got = [(s.name, s.m, s.k, s.n) for s in prog.sites(True, *args)]
+    if got != CF_SITES:
+        fail(f"control flow: sites {got} != the reference's {CF_SITES}")
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    outs = {pred: prog(pred, *args) for pred in (True, False)}
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    executed = Counter({"while0/dot0": 2 * CF_TRIPS, "cond1/br0/dot0": 1,
+                        "cond1/br1/dot0": 1, "dot0": 2, "dot1": 2})
+    print(f"[cf] sites {[name for name, *_ in got]} equal the reference's; "
+          f"K1 launches {launches['split_gemm']}, hook {dict(hooked)}, "
+          f"cache {prog.cache_info()}")
+    if (hooked != executed or launches["split_gemm"] != sum(executed.values())
+            or sum(launches.values()) != launches["split_gemm"]
+            or prog.cache_info()[:2] != (2, 1)):
+        fail(f"control flow: launches {launches}, hook {dict(hooked)} != "
+             f"executed {dict(executed)}, cache {prog.cache_info()}")
+
+    # Error against native FP64, per chained GEMM, normalized by the
+    # chain of |operands|: within the a-priori bound at s = 6.
+    beta = estimate_rel_error(CF_SPLITS, n)
+    mag_y = _cf_loop(y0.abs(), x.abs())
+    mag_e = torch.einsum("ij,jk,kl->il", a.abs(), b.abs(), c.abs())
+    worst = 0.0
+    for pred, (y, z, e) in outs.items():
+        ny, nz, ne = _cf_program(pred, *args)
+        mag_z = (2.0 if not pred else 1.0) * (a.abs() @ w.abs())
+        for got_, want, mag, chain in ((y, ny, mag_y, CF_TRIPS),
+                                       (z, nz, mag_z, 1), (e, ne, mag_e, 2)):
+            rel = float(((got_ - want).abs() / mag).max())
+            bound_ = chain * beta * (1 + beta) ** chain
+            worst = max(worst, rel / bound_)
+            if not rel <= bound_:
+                fail(f"control flow: error {rel:.3e} over {chain} chained "
+                     f"GEMMs > {bound_:.3e} (pred {pred})")
+    print(f"[cf] error against native FP64 at most {worst:.4f} of the "
+          f"a-priori bound (estimate_rel_error(6, {n}) = {beta:.3e} per "
+          "chained GEMM)")
+
+    # A user autograd.Function stays opaque: native product, its rule.
+    fa = a.clone().requires_grad_()
+    opaque = offload(lambda a, w: _ZeroGradMatmul.apply(a, w), policy)
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    out = opaque(fa, w)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    fn_launches = ops.LAUNCHES["split_gemm"]
+    fn_sites = opaque.sites(fa, w)
+    print(f"[cf] autograd.Function: sites {fn_sites}, K1 launches "
+          f"{fn_launches}, equal to native {torch.equal(out, a @ w)}, "
+          f"max |grad| {float(fa.grad.abs().max())}")
+    if (fn_sites or fn_launches or not torch.equal(out, a @ w)
+            or float(fa.grad.abs().max()) != 0.0):
+        fail("control flow: the user autograd.Function was not opaque")
+
+    # The while loop's roofline beside its time (not the main path's
+    # launches: the counters were read above).
+    loop = offload(_cf_loop, policy)
+
+    def event_ms(fn, reps=3):
+        fn(y0, x)   # warm
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(y0, x)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        return float(np.median(times))
+
+    m = k = n
+    pairs = num_pair_gemms(CF_SPLITS)
+    emul = analyze_cell({
+        "cell": f"while0/dot0 x{CF_TRIPS}, pallas_int8_{CF_SPLITS}",
+        "flops": CF_TRIPS * 2 * m * n * k * pairs,
+        "int8_flops": CF_TRIPS * 2 * m * n * k * pairs,
+        "hbm_bytes": CF_TRIPS * (CF_SPLITS * (m * k + k * n) + 8 * m * n)},
+        H100_PEAKS)
+    fp64 = analyze_cell({
+        "cell": f"while0/dot0 x{CF_TRIPS}, FP64",
+        "flops": CF_TRIPS * 2 * m * n * k,
+        "hbm_bytes": CF_TRIPS * 8 * (m * k + k * n + m * n)}, H100_PEAKS)
+    emul_ms, fp64_ms = event_ms(loop), event_ms(_cf_loop)
+    print(f"[roofline] {emul.cell}: bound {emul.bound_s * 1e3:.4f} ms "
+          f"({emul.dominant}; compute {emul.compute_s * 1e3:.4f}, memory "
+          f"{emul.memory_s * 1e3:.4f}), measured {emul_ms:.3f} ms "
+          f"({emul.bound_s * 1e3 / emul_ms:.3f} of the bound); {fp64.cell}: "
+          f"bound {fp64.bound_s * 1e3:.4f} ms ({fp64.dominant}), measured "
+          f"{fp64_ms:.3f} ms ({fp64.bound_s * 1e3 / fp64_ms:.3f})")
+    if emul_ms < emul.bound_s * 1e3 or fp64_ms < fp64.bound_s * 1e3:
+        fail("control flow: a measured time is under its roofline bound")
+    print(f"[cf] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_init():
     """Seeded parameters (``repro_torch.models.prng``) on the card against
     the CPU, to the bit, for the ``tiny`` config at two seeds, and the
@@ -1882,12 +2189,16 @@ def phase_pow2(n=1 << 20, seed=11):
 
 
 def bound(ops_count, nbytes):
-    """Least time on the card: int8 ops at PEAK_INT8_OPS against bytes
-    at PEAK_BYTES, the larger, and which one it is."""
-    t_ops = ops_count / PEAK_INT8_OPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+    """Least time on the card in ms, through
+    ``repro_torch.analysis.roofline`` at ``H100_PEAKS``: int8 ops at the
+    INT8 peak against bytes at the HBM rate, the larger, and which one
+    it is."""
+    from repro_torch.analysis.roofline import analyze_cell
+
+    cell = analyze_cell({"flops": ops_count, "int8_flops": ops_count,
+                         "hbm_bytes": nbytes})
+    return cell.bound_s * 1e3, ("operations" if cell.dominant == "compute"
+                                else "bytes")
 
 
 def phase_k1_timings(errs, launches, shapes):
@@ -2316,16 +2627,21 @@ def main():
     torch.cuda.empty_cache()
     obs_launches = phase_obs(served, trained)
     torch.cuda.empty_cache()
+    warm_launches = phase_warm_start(served)
+    torch.cuda.empty_cache()
+    cf_launches = phase_control_flow()
+    torch.cuda.empty_cache()
     # Launch counts per kernel: the main paths' runs (MuST, serve, train,
-    # the tune phase's plan-driven train and serve, and both again with
-    # telemetry on) and K3's A/B path, each read with the counters zeroed
-    # before it.
+    # the tune phase's plan-driven train and serve, both again with
+    # telemetry on, the warm-started serve and the control-flow program)
+    # and K3's A/B path, each read with the counters zeroed before it.
     total = {key: launches[key] + serve_launches[key] + v1_launches[key]
              + train_launches[key] + tune_launches[key] + obs_launches[key]
-             for key in launches}
+             + warm_launches[key] + cf_launches[key] for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
           f"train {train_launches}, tune {tune_launches}, obs "
-          f"{obs_launches}, v1 A/B {v1_launches}")
+          f"{obs_launches}, warm start {warm_launches}, control flow "
+          f"{cf_launches}, v1 A/B {v1_launches}")
     shapes = k1_timed_shapes()
     shapes += [pair for pair in tune_pairs if pair not in shapes][:3]
     rows = (phase_k1_timings(errs, total, shapes)

@@ -26,7 +26,8 @@ Package map:
     plan artifact, ``python -m repro_torch.tune``;
   * ``repro_torch.obs``     — telemetry: metrics registry, spans, JSONL
     runs, the numerics drift probe, live ``/metrics``, cost attribution,
-    ``python -m repro_torch.obs``.
+    ``python -m repro_torch.obs``;
+  * ``repro_torch.analysis`` — the roofline model, priced by the H100.
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,9 @@ Layers:
 
 from .backends import (GemmBackend, example_specs, get_backend,
                        register_backend, registered_families)
-from .intercept import Site, offload, scan, site_report
+from .intercept import (OFFLOAD_CACHE_SIZE, CacheInfo, PersistInfo, Site,
+                        cond, offload, scan, site_report, switch,
+                        while_loop)
 from .ozaki import (SLICE_BITS, num_pair_gemms, ozaki_matmul,
                     pair_indices, slice_matrix)
 from .precision import (AdaptiveGemm, PrecisionPolicy, SiteState,
@@ -19,10 +21,14 @@ from .precision import (AdaptiveGemm, PrecisionPolicy, SiteState,
                         splits_for_tolerance)
 
 __all__ = [
+    "OFFLOAD_CACHE_SIZE",
     "SLICE_BITS",
     "AdaptiveGemm",
+    "CacheInfo",
     "canonical_site",
+    "cond",
     "GemmBackend",
+    "PersistInfo",
     "PrecisionPolicy",
     "Site",
     "SiteState",
@@ -41,4 +47,6 @@ __all__ = [
     "site_report",
     "slice_matrix",
     "splits_for_tolerance",
+    "switch",
+    "while_loop",
 ]

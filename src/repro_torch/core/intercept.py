@@ -8,7 +8,7 @@ counterpart of link-time interception is a
 :func:`offload` runs ``fn`` under a mode that catches every
 ``torch.matmul`` / ``Tensor.__matmul__`` / ``Tensor.matmul``,
 ``torch.mm``, ``torch.bmm``, ``torch.addmm``, ``F.linear`` and
-two-operand ``torch.einsum`` call.
+``torch.einsum`` call.
 
 Each caught call is a *site*, named ``dot{i}`` in call order with the
 counter reset per call of ``fn``.  For straight-line programs,
@@ -26,7 +26,16 @@ squeezed, the others stay batch — and an ``einsum`` the way
 left-hand side, batch axes in output order, contracted axes sorted), so
 each site's ``m``/``k``/``n``/``batch``, its operand shapes and its
 gates equal the reference's; the 2-D backend then runs over the merged
-batch axis ``(B, M, K) @ (B, K, N)``.  A site passes the reference's
+batch axis ``(B, M, K) @ (B, K, N)``.  An einsum of three or more
+operands is split into pairwise contractions in the order
+``jnp.einsum`` takes (opt_einsum's ``'auto'`` path, which is its
+exhaustive ``'optimal'`` search up to four operands; the port keeps
+its own copy of that search and uses it for any count, where
+opt_einsum switches to branch-and-bound and greedy searches beyond
+four), each contraction a site ``dot{j}``; an index summed out of one
+operand alone is summed first, natively, as ``jnp.einsum`` does.
+Ellipses, repeated indices and implicit outputs raise
+``NotImplementedError``.  A site passes the reference's
 dtype gate (floating or complex) and ``min_dim`` gate, honours
 ``site_splits`` / ``site_backends`` (``"dgemm"`` demotes it to
 native), and unmatched override keys are handled per
@@ -75,33 +84,118 @@ AD reports a loop-body site once per step (ROADMAP section 3).  A
 gradient taken after ``fn`` returned runs through the forward site's
 engine and fires nothing, as the reference's ``custom_vjp`` does.
 
-Not ported yet: ``cond``/``while``/``shard_map`` scopes and
-``persist_dir`` (ROADMAP items 4, 9 and 8).
+Control flow.  :func:`cond`, :func:`switch` and :func:`while_loop` are
+the port's ``jax.lax`` counterparts.  Under an offload a ``cond`` or
+``switch`` opens ``cond{i}/br{b}/`` scopes on the flow counter
+``scan`` uses (branch ``b`` is ``int(pred)`` for a ``cond``, so ``br0``
+is the false branch) and runs only the branch the index selects; a
+``while_loop`` names its body's products ``while{i}/dot{j}`` and its
+predicate's ``while{i}/cond/dot{j}``, each with the enclosing ``mult``
+(the trip count is not static), and the hook fires once per real
+execution.  The reference lists every branch whatever the predicate,
+so the decision set must hold the branches not taken too: each is run
+once per input signature, natively and in report mode (no engine, no
+hook), when the decision cache does not yet hold it, and a loop body
+that never ran is run once so.  Branches must therefore be pure and
+total, as ``lax.cond``'s contract makes them.  A tensor predicate is
+read on the host: one synchronizing read per ``cond`` and per loop
+test.  A gradient inside ``fn`` names a ``cond``'s cotangents in a new
+``cond{i}/br{b}/`` scope of the backward, every branch's, as the
+reference's transposed ``cond`` does.  The reference cannot
+differentiate a ``while_loop`` in reverse; the port names such
+cotangents in a new ``while{i}/`` scope.
+
+Opaque calls.  A user :class:`torch.autograd.Function` is left opaque,
+as the reference leaves ``custom_jvp``/``custom_vjp`` calls: products
+inside its ``forward`` and ``backward`` are no sites and run natively,
+so its gradient rule holds.  The mode recognises a product inside a
+``forward`` by ``Function.apply`` on the stack between it and ``fn``
+(a ``forward`` runs with grad disabled, so only such calls look); a
+``backward`` runs where the mode is not active.
+
+Decision cache.  An eager program has no jaxpr to cache, so
+:func:`offload` caches each input signature's *site decisions* (the
+:class:`Site` records, tile choices and engine bindings), least
+recently used first out (``cache_size``, :data:`OFFLOAD_CACHE_SIZE`).
+The key is the pytree structure of ``(args, kwargs)``, each tensor's
+shape, dtype, device type and ``requires_grad``, each Python scalar's
+type (weak, as the reference marks it) and the grad mode.  A call that
+hits takes each site's decision from the entry by name and skips the
+gates and the tile pick; the plan and the override keys are checked
+once per entry.  An eager program may branch on Python values under one
+signature, so a cached decision is applied only to a product whose
+shapes, dtype and ``mult`` equal its record's; a call that meets
+another product, or a site set other than the entry's, warns, decides
+afresh, replaces the entry and counts a miss.  ``persist_dir`` writes
+each entry's decisions as ``<key>.json`` in the reference's byte
+encoding under the reference's content key (with the torch version and
+the pytree spec); with no exported program to restore, a restarted
+process decides afresh and byte-verifies against the file
+(``disk_decisions_hit``; ``disk_hits`` stays 0), overwriting it with a
+warning when they differ.  The reference's ``jit_entries`` and
+``transform_jaxpr`` have no eager counterpart.
+
+Not ported yet: ``shard_map`` and ``pmap`` scopes (ROADMAP item 9).
 """
 
 from __future__ import annotations
 
+import bisect
+import contextlib
+import dataclasses
+import hashlib
+import itertools
+import json
 import math
+import os
+import sys
 import threading
 import warnings
+from collections import OrderedDict, namedtuple
 from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
 from torch.autograd.graph import get_gradient_edge
 from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
 from .backends import GemmBackend, get_backend
 from .precision import PrecisionPolicy
 
-__all__ = ["offload", "scan", "site_report", "Site"]
+__all__ = ["offload", "scan", "cond", "switch", "while_loop",
+           "site_report", "Site", "CacheInfo", "PersistInfo",
+           "OFFLOAD_CACHE_SIZE"]
+
+#: Default bound on each wrapper's decision cache: a serving loop meets
+#: an open-ended stream of signatures (every wave shape is one), so the
+#: cache evicts instead of growing.
+OFFLOAD_CACHE_SIZE = 64
+
+#: ``wrapped.cache_info()`` record, the shape of functools.lru_cache's.
+CacheInfo = namedtuple("CacheInfo", ["hits", "misses", "maxsize",
+                                     "currsize"])
+
+#: ``wrapped.persist_info()`` record, the reference's: ``disk_hits``
+#: counts entries restored with a runnable exported program, which an
+#: eager program has none of, so it stays 0; ``disk_decisions_hits``
+#: counts entries whose decisions were on disk and were byte-verified
+#: against this process's; ``disk_misses`` entries decided fresh and
+#: written out.
+PersistInfo = namedtuple("PersistInfo", ["disk_hits",
+                                         "disk_decisions_hits",
+                                         "disk_misses", "directory"])
+
+#: Part of the persisted key, as in the reference: a file of another
+#: layout is never looked up.
+_PERSIST_FORMAT = 1
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def _site_payload(site: "Site", default_backend: str) -> dict:
+def _hook_payload(site: "Site", default_backend: str) -> dict:
     """The hook's static payload for ``site``: the reference's keys."""
     return {
         "site": site.name,
@@ -116,6 +210,109 @@ def _site_payload(site: "Site", default_backend: str) -> dict:
         "flops": site.flops,
         "tiles": dict(site.tiles) if site.tiles else None,
     }
+
+
+def _site_payload(sites) -> list:
+    """Site records as plain JSON data, the reference's fields (the
+    persisted decision set)."""
+    return [{"name": s.name, "lhs_shape": list(s.lhs_shape),
+             "rhs_shape": list(s.rhs_shape), "dtype": _dtype_name(s.dtype),
+             "offloaded": bool(s.offloaded), "splits": int(s.splits),
+             "reason": s.reason, "m": int(s.m), "k": int(s.k),
+             "n": int(s.n), "batch": int(s.batch), "mult": int(s.mult),
+             "spmd_axes": [[a, int(x)] for a, x in s.spmd_axes],
+             "backend": s.backend, "eligible": bool(s.eligible),
+             "tiles": s.tiles} for s in sites]
+
+
+def _sites_from_payload(payload: list) -> List["Site"]:
+    sites = []
+    for p in payload:
+        dtype = getattr(torch, p["dtype"])
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"not a dtype: {p['dtype']!r}")
+        sites.append(Site(
+            p["name"], p["lhs_shape"], p["rhs_shape"], dtype,
+            p["offloaded"], p["splits"], p["reason"], m=p["m"], k=p["k"],
+            n=p["n"], batch=p["batch"], mult=p["mult"],
+            spmd_axes=[tuple(a) for a in p["spmd_axes"]],
+            backend=p["backend"], eligible=p["eligible"],
+            tiles=p["tiles"]))
+    return sites
+
+
+def _sites_bytes(sites) -> bytes:
+    """The reference's canonical bytes of a decision set: two processes
+    that take the same decisions write identical files."""
+    return json.dumps(_site_payload(sites), sort_keys=True,
+                      separators=(",", ":")).encode()
+
+
+def _signature(args, kwargs) -> tuple:
+    """The decision cache's key: the pytree spec of ``(args, kwargs)``,
+    per leaf its abstract value, and the grad mode.
+
+    A tensor is its shape, dtype, device type and ``requires_grad``; a
+    Python scalar its type, marked weak as the reference marks it;
+    anything else its type.  ``requires_grad`` and the grad mode decide
+    which backward sites a call has.
+    """
+    leaves, spec = tree_flatten((args, kwargs))
+    sig = []
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            sig.append((tuple(x.shape), _dtype_name(x.dtype), False,
+                        x.device.type, bool(x.requires_grad)))
+        else:
+            sig.append(((), type(x).__name__,
+                        isinstance(x, (bool, int, float, complex))))
+    return spec, tuple(sig), torch.is_grad_enabled()
+
+
+def _persist_key(fn_label, key, policy, plan, hooked) -> str:
+    """The reference's content address of one entry: the function's
+    label, the input structure and signature, the policy, the plan's
+    fingerprint, whether a hook rides along and the library version."""
+    spec, sig, grad = key
+    payload = {
+        "format": _PERSIST_FORMAT,
+        "fn": fn_label,
+        "in_tree": str(spec),
+        "signature": sig,
+        "grad": grad,
+        "policy": dataclasses.asdict(policy),
+        "plan": getattr(plan, "fingerprint", None),
+        "hooked": bool(hooked),
+        "torch": torch.__version__,
+    }
+    blob = json.dumps(payload, sort_keys=True, separators=(",", ":"))
+    return hashlib.sha256(blob.encode()).hexdigest()[:32]
+
+
+class _DiskCache:
+    """One directory of ``<key>.json`` decision files.  Writes are
+    atomic (a temporary file, then a rename); a missing file is a miss."""
+
+    def __init__(self, directory):
+        self.directory = str(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.directory, f"{key}.json")
+
+    def load(self, key: str):
+        try:
+            with open(self._path(key), "rb") as f:
+                return f.read()
+        except OSError:
+            return None
+
+    def store(self, key: str, raw: bytes) -> None:
+        path = self._path(key)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "wb") as f:
+            f.write(raw)
+        os.replace(tmp, path)
 
 
 class Site:
@@ -272,12 +469,15 @@ class _MatmulDims:
 
 
 class _EinsumDims:
-    """``jnp.einsum``'s lowering of a two-operand einsum to ``dot_general``.
+    """``jnp.einsum``'s lowering of one two-operand contraction to
+    ``dot_general``.
 
     ``opt_einsum`` hands ``jnp.einsum`` the operands in reverse order,
     ``L`` = the second and ``R`` = the first.  A size-1 axis of ``L``
     facing a larger one in ``R`` is squeezed, then the same for ``R``
-    against what is left of ``L``; contracted names are sorted, batch
+    against what is left of ``L``; an index summed out of one operand
+    alone is summed there first (``L``'s, then ``R``'s, natively, as
+    ``jnp.einsum``'s ``reduce_sum``); contracted names are sorted, batch
     names follow the output, and the ``dot_general`` is ``R @ L`` when
     that yields the output names in order (batch, R's free, L's free),
     else ``L @ R``.  ``pack`` builds ``(B, M, K)`` / ``(B, K, N)`` and
@@ -286,18 +486,9 @@ class _EinsumDims:
 
     def __init__(self, equation: str, lhs_shape, rhs_shape):
         eq = equation.replace(" ", "")
-        if "..." in eq or "->" not in eq:
-            raise NotImplementedError(
-                f"einsum {equation!r}: offload handles explicit "
-                "two-operand equations without an ellipsis")
         inputs, out = eq.split("->")
         names = inputs.split(",")
         shapes = [tuple(lhs_shape), tuple(rhs_shape)]
-        if len(names) != 2 or any(len(n) != len(set(n)) for n in names) \
-                or any(len(n) != len(sh) for n, sh in zip(names, shapes)):
-            raise NotImplementedError(
-                f"einsum {equation!r}: offload handles two operands "
-                "without repeated indices")
         # [L, R] = [second, first], as (name, shape) pairs.
         ops_ = [(names[1], shapes[1]), (names[0], shapes[0])]
         self.squeeze = {}
@@ -312,12 +503,18 @@ class _EinsumDims:
                                if d not in drop),
                        tuple(x for d, x in enumerate(shape)
                              if d not in drop))
+        self.sums = {}
+        for i in (0, 1):
+            own, shape = ops_[i]
+            drop = [d for d, c in enumerate(own)
+                    if c not in out and c not in ops_[1 - i][0]]
+            self.sums[1 - i] = drop
+            ops_[i] = ("".join(c for d, c in enumerate(own)
+                               if d not in drop),
+                       tuple(x for d, x in enumerate(shape)
+                             if d not in drop))
         (ln, ls), (rn, rs) = ops_
         contracted = sorted(c for c in set(ln) | set(rn) if c not in out)
-        if any(c not in ln or c not in rn for c in contracted):
-            raise NotImplementedError(
-                f"einsum {equation!r}: an index summed out of one "
-                "operand alone is not a matmul")
         batch = [c for c in out if c in ln and c in rn]
         gone = set(batch) | set(contracted)
         l_rest = [c for c in ln if c not in gone]
@@ -348,6 +545,10 @@ class _EinsumDims:
             a = a.squeeze(d)
         for d in reversed(self.squeeze[1]):
             b = b.squeeze(d)
+        if self.sums[0]:
+            a = a.sum(dim=self.sums[0])
+        if self.sums[1]:
+            b = b.sum(dim=self.sums[1])
         if self.swap:
             a, b = b, a
         a3 = a.permute(*self.lperm).reshape(self.B, self.M, self.K)
@@ -359,27 +560,138 @@ class _EinsumDims:
         return y.permute(*self.out_perm)
 
 
-class _Scope:
-    """A naming scope: the top level of ``fn`` or one :func:`scan` body."""
+def _flop_count(indices, inner: bool, terms: int, size) -> int:
+    """opt_einsum's cost of one contraction over ``indices``."""
+    return (math.prod(size[c] for c in indices)
+            * (max(1, terms - 1) + (1 if inner else 0)))
 
-    def __init__(self, prefix: str = "", mult: int = 1):
+
+def _optimal_path(inputs, output, size) -> list:
+    """opt_einsum's ``'optimal'`` search (no memory limit, as
+    ``jnp.einsum`` calls it), its sieve and its tie order kept: the
+    cheapest sequence of pairwise contractions, in single-assignment
+    ids."""
+    best = {"flops": float("inf"), "path": (tuple(range(len(inputs))),)}
+    cache = {}
+
+    def descend(path, remaining, inputs, flops):
+        if len(remaining) == 1:
+            best["flops"], best["path"] = flops, path
+            return
+        for i, j in itertools.combinations(remaining, 2):
+            if i > j:
+                i, j = j, i
+            key = (inputs[i], inputs[j])
+            if key not in cache:
+                either, shared = inputs[i] | inputs[j], inputs[i] & inputs[j]
+                keep = frozenset.union(
+                    output, *map(inputs.__getitem__, remaining - {i, j}))
+                cache[key] = (either & keep,
+                              _flop_count(either, bool(shared - keep), 2,
+                                          size))
+            k12, flops12 = cache[key]
+            if flops + flops12 >= best["flops"]:
+                continue
+            descend(path + ((i, j),), remaining - {i, j} | {len(inputs)},
+                    inputs + (k12,), flops + flops12)
+
+    descend((), set(range(len(inputs))), tuple(inputs), 0)
+    return best["path"]
+
+
+def _ssa_to_linear(ssa_path) -> list:
+    """opt_einsum's conversion of a single-assignment path to list
+    positions."""
+    n = sum(map(len, ssa_path)) - len(ssa_path) + 1
+    ids, path, ssa = list(range(n)), [], n
+    for scon in ssa_path:
+        con = sorted(bisect.bisect_left(ids, x) for x in scon)
+        for j in reversed(con):
+            ids.pop(j)
+        ids.append(ssa)
+        path.append(tuple(con))
+        ssa += 1
+    return path
+
+
+def _einsum_steps(equation: str, shapes) -> list:
+    """``jnp.einsum``'s pairwise contractions of an explicit equation.
+
+    Each step pops two list positions (the higher first), as
+    opt_einsum's ``contract_path`` does, and appends their result; it
+    is given as those positions and the two-operand equation over (the
+    lower operand, the higher) that :class:`_EinsumDims` lowers.  The
+    order is opt_einsum's ``'auto'`` path up to four operands (its
+    ``'optimal'`` search) and that search beyond; an intermediate's
+    indices follow their first appearance in the pair, the last step's
+    are the output's.
+    """
+    eq = equation.replace(" ", "")
+    if "..." in eq or "->" not in eq:
+        raise NotImplementedError(
+            f"einsum {equation!r}: offload handles explicit equations "
+            "without an ellipsis")
+    inputs, out = eq.split("->")
+    names = inputs.split(",")
+    if len(names) != len(shapes) \
+            or any(len(n) != len(set(n)) for n in names) \
+            or any(len(n) != len(sh) for n, sh in zip(names, shapes)):
+        raise NotImplementedError(
+            f"einsum {equation!r}: offload handles operands without "
+            "repeated indices")
+    size = {}
+    for n, shape in zip(names, shapes):
+        for c, d in zip(n, shape):
+            if size.get(c, 1) == 1:
+                size[c] = int(d)
+    sets = [frozenset(n) for n in names]
+    path = ([(0, 1)] if len(names) == 2 else
+            _ssa_to_linear(_optimal_path(sets, frozenset(out), size)))
+    steps = []
+    for num, inds in enumerate(path):
+        inds = tuple(sorted(inds, reverse=True))
+        popped = [sets.pop(x) for x in inds]
+        result = frozenset(out).union(*sets) & frozenset.union(*popped)
+        sets.append(result)
+        pair = [names.pop(x) for x in inds]
+        if num == len(path) - 1:
+            res = out
+        else:
+            joined = "".join(pair)
+            res = "".join(sorted(result, key=joined.find))
+        names.append(res)
+        steps.append((inds, f"{pair[1]},{pair[0]}->{res}"))
+    return steps
+
+
+class _Scope:
+    """A naming scope: the top level of ``fn``, a loop's body or
+    predicate, or one branch of a ``cond``."""
+
+    def __init__(self, prefix: str = "", mult: int = 1,
+                 record: bool = True):
         self.prefix = prefix
         self.mult = mult
         self.dots = 0        # dot{j} counter
         self.flows = 0       # scan/while/cond counter (the reference's)
-        self.record = True   # False on a scan's later iterations
+        self.record = record   # False on a loop's later iterations
 
 
 class _Active(threading.local):
     """Offload modes running ``fn`` in this thread, innermost last;
-    :func:`scan` opens its scope in the innermost (torch keeps its
-    function-mode stack per thread too)."""
+    :func:`scan`, :func:`switch` and :func:`while_loop` open their
+    scopes in the innermost (torch keeps its function-mode stack per
+    thread too)."""
 
     def __init__(self):
         self.modes: List["_OffloadMode"] = []
 
 
 _ACTIVE = _Active()
+
+
+def _active():
+    return _ACTIVE.modes[-1] if _ACTIVE.modes else None
 
 
 def _stack(outs):
@@ -432,14 +744,12 @@ def scan(body, carry, xs):
     multiplied by the trip count.
     """
     n = _length(xs)
-    mode = _ACTIVE.modes[-1] if _ACTIVE.modes else None
+    mode = _active()
     scope = None
     if mode is not None:
         parent = mode.scopes[-1]
-        scope = _Scope(f"{parent.prefix}scan{parent.flows}/",
-                       parent.mult * n)
-        scope.record = parent.record
-        parent.flows += 1
+        scope = _Scope(mode.open_flow("scan"), parent.mult * n,
+                       parent.record)
         mode.scopes.append(scope)
     ys = []
     try:
@@ -455,13 +765,65 @@ def scan(body, carry, xs):
     return carry, (_stack(ys) if ys else None)
 
 
-class _Call:
-    """One caught call: its matmul operands and how to finish it."""
+def switch(index, branches, *operands):
+    """``jax.lax.switch`` for eager torch: ``branches[index](*operands)``
+    with ``index`` clamped into range (a tensor index is read on the
+    host).
 
-    def __init__(self, lhs, rhs, finish=None, equation=None):
+    Under :func:`offload` or :func:`site_report` it is a ``cond{i}``
+    scope whose branch ``b`` names its sites ``cond{i}/br{b}/dot{j}``.
+    Only the selected branch runs for its result, but the decision set
+    lists every branch's sites, as the reference's does: a branch that
+    is not selected is run once per input signature, natively and in
+    report mode, unless the decision cache already holds it.  Branches
+    must therefore be pure and total, ``lax.switch``'s contract.
+    """
+    branches = list(branches)
+    index = min(max(int(index), 0), len(branches) - 1)
+    mode = _active()
+    if mode is None:
+        return branches[index](*operands)
+    return mode.run_switch(index, branches, operands)
+
+
+def cond(pred, true_fn, false_fn, *operands):
+    """``jax.lax.cond`` for eager torch: ``true_fn(*operands)`` if
+    ``pred`` else ``false_fn(*operands)``.  A :func:`switch` over
+    ``(false_fn, true_fn)``: branch ``br1`` is the true branch, and a
+    tensor ``pred`` is read on the host (one synchronizing read)."""
+    return switch(int(bool(pred)), (false_fn, true_fn), *operands)
+
+
+def while_loop(cond_fun, body_fun, init_val):
+    """``jax.lax.while_loop`` for eager torch: ``val = body_fun(val)``
+    while ``cond_fun(val)`` (a tensor result is read on the host, one
+    synchronizing read per test).
+
+    Under :func:`offload` the body's sites are ``while{i}/dot{j}`` and
+    the predicate's ``while{i}/cond/dot{j}``, shared by every iteration,
+    each with the enclosing ``mult`` (the trip count is not static); the
+    hook fires once per real execution.  A body that never runs is run
+    once in report mode, so its sites are listed, as the reference's.
+    """
+    mode = _active()
+    if mode is None:
+        val = init_val
+        while bool(cond_fun(val)):
+            val = body_fun(val)
+        return val
+    return mode.run_while(cond_fun, body_fun, init_val)
+
+
+class _Call:
+    """One caught call: its matmul operands and how to finish it, or an
+    einsum's equation and operands."""
+
+    def __init__(self, lhs, rhs, finish=None, equation=None,
+                 operands=()):
         self.lhs, self.rhs = lhs, rhs
         self.finish = finish or (lambda prod: prod)
         self.equation = equation    # set for an einsum
+        self.operands = operands
 
 
 def _addmm_finish(inp, beta, alpha):
@@ -482,9 +844,9 @@ def _parse_call(func, args, kwargs):
         ops_ = args[1:]
         if len(ops_) == 1 and isinstance(ops_[0], (list, tuple)):
             ops_ = tuple(ops_[0])
-        if len(ops_) != 2:
+        if len(ops_) < 2:
             return None
-        return _Call(ops_[0], ops_[1], equation=args[0])
+        return _Call(None, None, equation=args[0], operands=ops_)
     if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
                 torch.mm, torch.Tensor.mm, torch.bmm, torch.Tensor.bmm):
         if len(args) != 2 or kwargs:
@@ -693,11 +1055,43 @@ class _SiteMatmul(torch.autograd.Function):
         return dl, dr, None, None, None, None
 
 
+#: The frame of ``Function.apply``: a product under it, inside ``fn``,
+#: is in a user ``autograd.Function``'s forward.
+_FUNCTION_APPLY = torch.autograd.Function.apply.__func__.__code__
+
+
+def _same_product(site: Site, dims, dtype, mult) -> bool:
+    """Whether ``site``'s record is the decision for this product."""
+    return ((site.lhs_shape, site.rhs_shape, site.m, site.k, site.n,
+             site.batch, site.mult, site.dtype)
+            == (tuple(dims.lhs_shape), tuple(dims.rhs_shape), dims.M,
+                dims.K, dims.N, dims.B, mult, dtype))
+
+
+class _Entry:
+    """One signature's decisions: its sites in order, by name, and the
+    branch and loop-body prefixes they cover (taken or not)."""
+
+    __slots__ = ("sites", "by_name", "branches")
+
+    def __init__(self, sites, branches):
+        self.sites = sites
+        self.by_name = {site.name: site for site in sites}
+        self.branches = frozenset(branches)
+
+
 class _OffloadMode(TorchFunctionMode):
-    """Catches matmul calls, names them ``dot{i}``, routes the offloaded."""
+    """Catches matmul calls, names them ``dot{i}``, routes the offloaded.
+
+    ``known`` is the decision cache's entry for the call's signature:
+    a product whose record it holds takes that decision, and a branch
+    that does not run takes its sites from it.  ``stale`` is set when
+    the call meets what the entry does not describe.
+    """
 
     def __init__(self, policy: PrecisionPolicy, engine_for, execute: bool,
-                 authoritative: bool = False, on_site_event=None):
+                 authoritative: bool = False, on_site_event=None,
+                 known: _Entry | None = None):
         super().__init__()
         self.policy = policy
         self.on_site_event = on_site_event
@@ -707,9 +1101,28 @@ class _OffloadMode(TorchFunctionMode):
         self.execute = execute
         # The engine runs every eligible site, demoted ones too.
         self.authoritative = authoritative
+        self.known = known
+        self.stale = False
         self.sites: List[Site] = []
+        # This call's decisions by name, and the branch and loop-body
+        # prefixes they cover.
+        self.decided: Dict[str, Site] = {}
+        self.branches: set = set()
         self.scopes = [_Scope()]
         self.running = False
+        self.frame = None
+        # Program order of the recorded products and flows (a counter),
+        # which orders each gradient pass's cotangent sites as the
+        # reference's transposed program lists them.
+        self.seq = 0
+        self.prod_seq: Dict[tuple, int] = {}
+        self.flow_seq: Dict[str, int] = {}
+        self.sort_keys: Dict[str, tuple] = {}
+        self.pass_no = 0
+        # Per cond (its cond{i}/ prefix): the branches that did not run,
+        # and the autograd nodes of their report-mode outputs.
+        self.untaken_of: Dict[str, List[int]] = {}
+        self.untaken_roots: list = []
         # Per forward scope prefix: its products that take a gradient
         # (by dot index), the backward scope their cotangents are named
         # in, and those cotangents' sites keyed (dot index, operand).
@@ -724,17 +1137,183 @@ class _OffloadMode(TorchFunctionMode):
         self.pass_needs: Dict[tuple, tuple] | None = None
 
     def run(self, fn, args, kwargs):
-        """``fn(*args, **kwargs)`` under this mode, as :func:`scan`'s
-        innermost scope owner."""
+        """``fn(*args, **kwargs)`` under this mode, as the innermost
+        scope owner of :func:`scan`, :func:`switch` and
+        :func:`while_loop`."""
         _ACTIVE.modes.append(self)
         self.running = True
+        self.frame = sys._getframe()
         try:
             with self:
                 return fn(*args, **kwargs)
         finally:
             self.running = False
-            self.nodes.clear()   # the graph's nodes are not kept past fn
+            self.frame = None
+            # The graph's nodes are not kept past fn.
+            self.nodes.clear()
+            self.untaken_roots.clear()
             _ACTIVE.modes.pop()
+
+    def decisions(self) -> List[Site]:
+        """This call's sites in the reference's order: discovery order,
+        with each gradient pass's cotangent sites in reverse program
+        order, a ``cond``'s branches in turn."""
+        out, run = [], []
+        for site in self.sites + [None]:
+            key = None if site is None else self.sort_keys.get(site.name)
+            if key is not None:
+                run.append((key, len(run), site))
+                continue
+            out.extend(s for _, _, s in sorted(run))
+            run = []
+            if site is not None:
+                out.append(site)
+        return out
+
+    def matches(self, entry: _Entry) -> bool:
+        """Whether this call met exactly what ``entry`` describes."""
+        return (not self.stale
+                and {s.name for s in self.sites} == set(entry.by_name))
+
+    # -- control-flow scopes ------------------------------------------
+
+    def _next_seq(self) -> int:
+        self.seq += 1
+        return self.seq
+
+    def open_flow(self, kind: str) -> str:
+        """Number a new scan, while or cond of the innermost scope."""
+        parent = self.scopes[-1]
+        prefix = f"{parent.prefix}{kind}{parent.flows}/"
+        parent.flows += 1
+        if parent.record:
+            self.flow_seq.setdefault(prefix, self._next_seq())
+        return prefix
+
+    @contextlib.contextmanager
+    def within(self, scope: _Scope):
+        self.scopes.append(scope)
+        try:
+            yield scope
+        finally:
+            self.scopes.pop()
+
+    def run_switch(self, index: int, branches, operands):
+        """One ``cond``/``switch``: branch ``index`` runs, every other is
+        recorded (:meth:`not_run`), and under grad its outputs name the
+        cond's backward scope when their gradient arrives."""
+        parent = self.scopes[-1]
+        group = self.open_flow("cond")
+        out = None
+        for b, branch in enumerate(branches):
+            scope = _Scope(f"{group}br{b}/", parent.mult, parent.record)
+            if b == index:
+                with self.within(scope):
+                    out = branch(*operands)
+            elif parent.record:
+                self.not_run(scope, branch, operands)
+            if parent.record:
+                self.branches.add(scope.prefix)
+        if parent.record:
+            self.untaken_of[group] = [b for b in range(len(branches))
+                                      if b != index]
+        if not torch.is_grad_enabled():
+            return out
+        taken = f"{group}br{index}/"
+
+        def named(t):
+            if not (isinstance(t, torch.Tensor) and t.requires_grad):
+                return t
+            with torch._C.DisableTorchFunction():
+                t = t.view_as(t)   # a tensor of this call's, not fn's
+            t.register_hook(self._names_backward_scope(taken))
+            return t
+        return tree_map(named, out)
+
+    def run_while(self, cond_fun, body_fun, val):
+        parent = self.scopes[-1]
+        prefix = self.open_flow("while")
+        test = _Scope(prefix + "cond/", parent.mult, parent.record)
+        body = _Scope(prefix, parent.mult, parent.record)
+        ran = False
+        while True:
+            test.dots = test.flows = 0
+            with self.within(test):
+                go = bool(cond_fun(val))
+            test.record = False
+            if not go:
+                break
+            body.dots = body.flows = 0
+            with self.within(body):
+                val = body_fun(val)
+            body.record = False
+            ran = True
+        if parent.record:
+            if not ran:
+                with torch.no_grad():
+                    self.not_run(body, body_fun, (val,))
+            self.branches.add(prefix)
+        return val
+
+    def not_run(self, scope: _Scope, fn, args) -> None:
+        """Record the sites of a branch or loop body that does not run:
+        from the cache's entry when it covers them, else by running
+        ``fn`` natively in report mode (no engine, no hook)."""
+        if self.known is not None and scope.prefix in self.known.branches:
+            self._copy_known(scope.prefix)
+            return
+        if self.known is not None:
+            self.stale = True
+        execute, self.execute = self.execute, False
+        try:
+            with self.within(scope):
+                out = fn(*args)
+        finally:
+            self.execute = execute
+        if torch.is_grad_enabled():
+            self.untaken_roots += [
+                t.grad_fn for t in tree_leaves(out)
+                if isinstance(t, torch.Tensor) and t.grad_fn is not None]
+
+    def _copy_known(self, prefix: str) -> None:
+        """Take the entry's sites under ``prefix`` as this call's."""
+        for site in self.known.sites:
+            if site.name.startswith(prefix) and site.name not in self.decided:
+                self.decided[site.name] = site
+                self.sites.append(site)
+                self._note_payload(site)
+        self.branches.add(prefix)
+
+    def _in_function(self) -> bool:
+        """Whether the caught call is inside a user ``autograd.Function``'s
+        forward, which runs with grad disabled: ``Function.apply`` on
+        the stack between here and :meth:`run`."""
+        if torch.is_grad_enabled():
+            return False
+        frame = sys._getframe(2)
+        while frame is not None and frame is not self.frame:
+            if frame.f_code is _FUNCTION_APPLY:
+                return True
+            frame = frame.f_back
+        return False
+
+    # -- decisions ----------------------------------------------------
+
+    def _decide(self, name: str, dims, dtype, mult) -> Site:
+        """The decision for one product: this call's or the entry's
+        record under ``name`` when it describes the same product, else
+        the gates and the tile pick."""
+        site = self.decided.get(name)
+        if site is None and self.known is not None:
+            site = self.known.by_name.get(name)
+        if site is None or not _same_product(site, dims, dtype, mult):
+            if self.known is not None:
+                self.stale = True
+            site = _classify(dims, dtype, self.policy, name, mult)
+        self.decided[name] = site
+        return site
+
+    # -- gradient passes ----------------------------------------------
 
     def start_pass(self, outputs, inputs) -> None:
         """A gradient pass inside ``fn`` begins (``torch.autograd.grad``
@@ -742,12 +1321,14 @@ class _OffloadMode(TorchFunctionMode):
         next ``jax.grad`` does, for the products it reaches.
 
         A product takes part when its output's node is reachable from
-        the pass's ``outputs``; an operand's cotangent is taken when its
-        gradient edge leads to one of ``inputs`` (to any leaf when
-        ``inputs`` is None), which is what autograd executes.
+        the pass's ``outputs`` (or from a ``cond`` branch that did not
+        run, whose cotangents the reference's transposed ``cond`` takes
+        too); an operand's cotangent is taken when its gradient edge
+        leads to one of ``inputs`` (to any leaf when ``inputs`` is
+        None), which is what autograd executes.
         """
-        order = _postorder(t.grad_fn for t in outputs
-                           if t.grad_fn is not None)
+        order = _postorder([t.grad_fn for t in outputs
+                            if t.grad_fn is not None] + self.untaken_roots)
         reach = set(order)
         if inputs is None:
             useful = {n for n in order
@@ -765,6 +1346,7 @@ class _OffloadMode(TorchFunctionMode):
                     needs[key] = (old[0] or lhs in useful,
                                   old[1] or rhs in useful)
         self.pass_needs = needs
+        self.pass_no += 1
         self.backward_scopes = {"": self.scopes[0]}
         self.backward = {}
 
@@ -784,17 +1366,51 @@ class _OffloadMode(TorchFunctionMode):
 
     def _backward_scope(self, prefix: str) -> _Scope:
         """The scope the cotangents of forward scope ``prefix`` are named
-        in: the top level for the top level, else a new scan scope of
-        the parent's backward scope, numbered by its flow counter."""
+        in: the top level for the top level; a scan, while or cond is a
+        new flow of its parent's backward scope, numbered by its flow
+        counter, and a cond's branch ``b`` is ``br{b}/`` under it."""
         scope = self.backward_scopes.get(prefix)
-        if scope is None:
-            parts = prefix.split("/")[:-1]
-            parent = self._backward_scope(
-                "/".join(parts[:-1]) + "/" if len(parts) > 1 else "")
-            scope = _Scope(f"{parent.prefix}scan{parent.flows}/")
+        if scope is not None:
+            return scope
+        head, _, last = prefix[:-1].rpartition("/")
+        parent = self._backward_scope(head + "/" if head else "")
+        if last.startswith("br") or last == "cond":
+            scope = _Scope(f"{parent.prefix}{last}/")
+        else:
+            kind = last.rstrip("0123456789")
+            scope = _Scope(f"{parent.prefix}{kind}{parent.flows}/")
             parent.flows += 1
-            self.backward_scopes[prefix] = scope
+        self.backward_scopes[prefix] = scope
+        if last.startswith("br"):
+            self.branches.add(scope.prefix)
+        elif last.startswith("cond") and last != "cond":
+            self._untaken_cotangents(prefix, scope)
         return scope
+
+    def _untaken_cotangents(self, group: str, scope: _Scope) -> None:
+        """The cotangent sites of a cond's branches that did not run, as
+        its backward begins: the entry's when it covers them, else made
+        from the branch's report-mode products."""
+        for b in self.untaken_of.get(group, ()):
+            bwd = f"{scope.prefix}br{b}/"
+            if self.known is not None and bwd in self.known.branches:
+                self._copy_known(bwd)
+                continue
+            if self.known is not None:
+                self.stale = True
+            self.backward_sites(f"{group}br{b}/")
+
+    def _sort_key(self, prefix: str, j: int, which: str) -> tuple:
+        """Where the cotangent site of forward dot ``j`` of ``prefix``
+        stands in its pass: reverse program order at every level, a
+        cond's branches in turn, the rhs cotangent first."""
+        key, path = [], ""
+        for part in prefix.split("/")[:-1]:
+            path += part + "/"
+            key.append(int(part[2:]) if part.startswith("br")
+                       else -self.flow_seq.get(path, 0))
+        key += [-self.prod_seq.get((prefix, j), 0), which == "lhs"]
+        return self.pass_no, tuple(key)
 
     def backward_sites(self, prefix: str) -> Dict[tuple, Site]:
         """The cotangent sites of forward scope ``prefix``, made and
@@ -824,16 +1440,32 @@ class _OffloadMode(TorchFunctionMode):
             for which, needed in (("rhs", needs[1]), ("lhs", needs[0])):
                 if not needed:
                     continue
-                site = _classify(prod.cotangent(which), prod.dtype,
-                                 self.policy,
-                                 f"{scope.prefix}dot{scope.dots}",
-                                 prod.mult)
+                site = self._decide(f"{scope.prefix}dot{scope.dots}",
+                                    prod.cotangent(which), prod.dtype,
+                                    prod.mult)
                 scope.dots += 1
                 self.sites.append(site)
+                self.sort_keys[site.name] = self._sort_key(prefix, j, which)
                 self._note_payload(site)
                 found[(j, which)] = site
         self.backward[prefix] = found
         return found
+
+    def _names_backward_scope(self, prefix: str):
+        """A gradient hook that names ``prefix``'s backward scope when
+        the gradient reaches it (a product that runs natively, or a
+        cond's output): a backward inside ``fn`` then makes (and
+        records) its cotangent sites."""
+        def hook(grad):
+            if self.running:
+                with torch._C.DisableTorchFunction():
+                    if prefix in self.products:
+                        self.backward_sites(prefix)
+                    else:
+                        self._backward_scope(prefix)
+        return hook
+
+    # -- execution ----------------------------------------------------
 
     def _engine_runs(self, site: Site) -> bool:
         return site.offloaded or (self.authoritative and site.eligible)
@@ -842,7 +1474,7 @@ class _OffloadMode(TorchFunctionMode):
         """Build the hook's payload for a newly decided site."""
         if (self.on_site_event is not None and site.offloaded
                 and site.name not in self.payloads):
-            self.payloads[site.name] = _site_payload(site,
+            self.payloads[site.name] = _hook_payload(site,
                                                      self.policy.backend)
 
     def _fire(self, site: Site) -> None:
@@ -858,36 +1490,46 @@ class _OffloadMode(TorchFunctionMode):
             return _batched(self.engine_for(site), site)(a3, b3, out_dtype)
         return _native(a3, b3, out_dtype)
 
-    def _names_cotangents_of(self, prefix: str):
-        """A gradient hook on a product that runs natively: its
-        cotangents stay torch's own, but a backward inside ``fn`` still
-        makes (and records) their sites."""
-        def hook(grad):
-            if self.running:
-                with torch._C.DisableTorchFunction():
-                    self.backward_sites(prefix)
-        return hook
-
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if func in _GRAD_ENTRIES and self.running:
             self.start_pass(*_grad_targets(func, args, kwargs))
             return func(*args, **kwargs)
         call = _parse_call(func, args, kwargs)
-        if call is None:
+        if call is None or self._in_function():
             return func(*args, **kwargs)
-        lhs, rhs = call.lhs, call.rhs
-        dims = (_MatmulDims(lhs.shape, rhs.shape) if call.equation is None
-                else _EinsumDims(call.equation, lhs.shape, rhs.shape))
+        if call.equation is not None:
+            return self._einsum(call.equation, call.operands)
+        return self._product(call.lhs, call.rhs,
+                             _MatmulDims(call.lhs.shape, call.rhs.shape),
+                             call.finish, lambda: func(*args, **kwargs))
+
+    def _einsum(self, equation: str, operands):
+        """An einsum as ``jnp.einsum`` runs it: pairwise contractions,
+        each a site."""
+        ops = list(operands)
+        for inds, eq in _einsum_steps(equation, [op.shape for op in ops]):
+            high, low = ops.pop(inds[0]), ops.pop(inds[1])
+            ops.append(self._product(
+                low, high, _EinsumDims(eq, low.shape, high.shape), None,
+                lambda low=low, high=high, eq=eq: torch.einsum(eq, low,
+                                                               high)))
+        return ops[0]
+
+    def _product(self, lhs, rhs, dims, finish, native):
+        """One site: decide it, run it through its engine or natively
+        (``native()``), and note what its backward needs."""
+        finish = finish or (lambda prod: prod)
         dtype = torch.promote_types(lhs.dtype, rhs.dtype)
         scope = self.scopes[-1]
         j = scope.dots
-        site = _classify(dims, dtype, self.policy, f"{scope.prefix}dot{j}",
-                         scope.mult)
         scope.dots += 1
+        site = self._decide(f"{scope.prefix}dot{j}", dims, dtype,
+                            scope.mult)
         if scope.record:
             self.sites.append(site)
             self._note_payload(site)
+            self.prod_seq.setdefault((scope.prefix, j), self._next_seq())
         grad = torch.is_grad_enabled()
         needs = (grad and lhs.requires_grad, grad and rhs.requires_grad)
         # In the packed operands' order, which the cotangent sites and
@@ -907,12 +1549,12 @@ class _OffloadMode(TorchFunctionMode):
                                    (scope.prefix, j))
             node = y3.grad_fn
             y = dims.unpack(y3)
-            out = call.finish(y)
+            out = finish(y)
         else:
-            out = y = func(*args, **kwargs)
+            out = y = native()
             node = y.grad_fn
             if any(needs):
-                y.register_hook(self._names_cotangents_of(scope.prefix))
+                y.register_hook(self._names_backward_scope(scope.prefix))
         if any(needs):
             edges = [get_gradient_edge(x).node if x.requires_grad else None
                      for x in (lhs, rhs)]
@@ -925,7 +1567,9 @@ class _OffloadMode(TorchFunctionMode):
 
 def offload(fn, policy: PrecisionPolicy | None = None, *,
             backend: GemmBackend | None = None, plan=None,
-            plan_match: str = "strict", on_site_event=None):
+            plan_match: str = "strict", on_site_event=None,
+            cache_size: int = OFFLOAD_CACHE_SIZE, persist_dir=None,
+            fn_label: str | None = None, on_cache_event=None):
     """Wrap ``fn`` so its large matmuls run through the policy backend.
 
     Every call runs ``fn`` eagerly under the interception mode.  Sites
@@ -934,7 +1578,22 @@ def offload(fn, policy: PrecisionPolicy | None = None, *,
     a site routed to another spec by ``site_backends`` gets its own.
     The wrapper exposes ``wrapped.sites(*args, **kwargs)``: the
     :class:`Site` decisions for those inputs, the same records
-    :func:`site_report` gives.
+    :func:`site_report` gives (from the cache when the signature is in
+    it, which runs nothing; else from a native report-mode run, which
+    fills the entry).
+
+    Decisions are cached per input signature (module docstring), a
+    ``cache_size``-bounded LRU: ``wrapped.cache_info()`` and
+    ``wrapped.cache_clear()`` as the reference's.  ``persist_dir``
+    keeps each entry's decisions on disk as ``<key>.json``, the
+    reference's bytes under the reference's key (with the torch
+    version); ``fn_label`` names the function in the key (default
+    ``fn.__name__``: give lambdas a stable label), ``on_cache_event``
+    is called with ``"miss"`` or ``"disk_decisions_hit"`` as entries
+    resolve, and ``wrapped.persist_info()`` returns the tallies.  An
+    eager program has no exported program to restore, so a restarted
+    process decides afresh and checks the decisions against the file
+    byte for byte (``disk_hits`` stays 0).
 
     ``backend`` injects the default engine instead of resolving
     ``policy.backend`` (the tuner's recording backend rides the same
@@ -945,23 +1604,26 @@ def offload(fn, policy: PrecisionPolicy | None = None, *,
 
     ``plan`` accepts a :class:`repro_torch.tune.PrecisionPlan`: with no
     ``policy`` its policy (``PrecisionPolicy.from_plan``) drives the
-    offload.  With ``plan_match="strict"`` each call's site set (and
-    each ``sites`` report) is validated against the plan's fingerprint
-    (``plan.validate_sites``), so a drifted program raises
-    :class:`~repro_torch.tune.PlanStaleError`; an eager program is only
-    known once it has run, so the error comes after the call, before
-    its result is returned.  ``plan_match="subset"`` applies the
-    overlapping entries and ignores the rest (``on_unmatched_site=
-    "ignore"``), as a serve engine runs a train-calibrated plan.
+    offload.  With ``plan_match="strict"`` each new entry's site set is
+    validated against the plan's fingerprint (``plan.validate_sites``),
+    so a drifted program raises :class:`~repro_torch.tune.PlanStaleError`;
+    an eager program is only known once it has run, so the error comes
+    after the call, before its result is returned.  ``plan_match=
+    "subset"`` applies the overlapping entries and ignores the rest
+    (``on_unmatched_site="ignore"``), as a serve engine runs a
+    train-calibrated plan.
 
     ``on_site_event`` is the telemetry hook (see the module docstring):
     a host callable given one payload dict per execution of an
     offloaded site, forward and backward —
-    :meth:`repro_torch.obs.MetricsRun.site_event_handler` is one.
+    :meth:`repro_torch.obs.MetricsRun.site_event_handler` is one.  It
+    fires on every call, cached or not.
     """
     if plan_match not in ("strict", "subset"):
         raise ValueError(f"plan_match must be 'strict' or 'subset', "
                          f"got {plan_match!r}")
+    if cache_size < 1:
+        raise ValueError(f"cache_size must be >= 1, got {cache_size}")
     if policy is None:
         policy = (PrecisionPolicy() if plan is None else
                   PrecisionPolicy.from_plan(
@@ -971,6 +1633,11 @@ def offload(fn, policy: PrecisionPolicy | None = None, *,
     engines: Dict[str, GemmBackend] = {policy.backend: backend}
     authoritative = getattr(backend, "intercepts_all_sites", False)
     observe = getattr(backend, "observe_sites", None)
+    cache: "OrderedDict[tuple, _Entry]" = OrderedDict()
+    stats = {"hits": 0, "misses": 0}
+    pstats = {"disk_hits": 0, "disk_decisions_hits": 0, "disk_misses": 0}
+    disk = _DiskCache(persist_dir) if persist_dir is not None else None
+    label = fn_label or getattr(fn, "__name__", "fn")
 
     def engine_for(site: Site) -> GemmBackend:
         if authoritative:
@@ -980,31 +1647,107 @@ def offload(fn, policy: PrecisionPolicy | None = None, *,
             engines[spec] = get_backend(spec, policy=policy)
         return engines[spec]
 
-    def validate(found: List[Site]) -> None:
+    def event(kind: str) -> None:
+        if on_cache_event is not None:
+            on_cache_event(kind)
+
+    def persist(key, found: List[Site], replaced: bool) -> None:
+        dkey = _persist_key(label, key, policy, plan,
+                            on_site_event is not None)
+        fresh = _sites_bytes(found)
+        if replaced:
+            disk.store(dkey, fresh)
+            return
+        raw = disk.load(dkey)
+        if raw is not None:
+            try:
+                _sites_from_payload(json.loads(raw))
+            except (ValueError, KeyError, TypeError, AttributeError) as exc:
+                warnings.warn(f"persisted offload decisions {dkey}.json "
+                              f"unreadable ({exc!r}); deciding afresh")
+                raw = None
+        if raw is None:
+            pstats["disk_misses"] += 1
+            event("miss")
+            disk.store(dkey, fresh)
+            return
+        if raw != fresh:
+            warnings.warn(f"persisted offload decisions {dkey}.json do "
+                          "not match this process's; overwriting with "
+                          "the fresh decisions")
+            disk.store(dkey, fresh)
+        pstats["disk_decisions_hits"] += 1
+        event("disk_decisions_hit")
+
+    def resolve(key, entry: _Entry | None, mode: _OffloadMode) -> List[Site]:
+        """Count the call against the cache and return its decisions;
+        a miss (or a stale entry) is checked, persisted and cached."""
+        if entry is not None and mode.matches(entry):
+            stats["hits"] += 1
+            cache.move_to_end(key)
+            return entry.sites
+        if entry is not None:
+            warnings.warn(
+                f"offload({label}): the decisions cached for this input "
+                "signature do not describe this call's products (a "
+                "Python-level branch?); deciding afresh", stacklevel=3)
+        stats["misses"] += 1
+        found = mode.decisions()
+        _check_overrides(policy, found)
         if plan is not None and plan_match == "strict":
             plan.validate_sites(found)
+        if disk is not None:
+            persist(key, found, replaced=entry is not None)
+        cache[key] = _Entry(found, mode.branches)
+        cache.move_to_end(key)
+        while len(cache) > cache_size:
+            cache.popitem(last=False)
+        return found
 
     def wrapped(*args, **kwargs):
+        key = _signature(args, kwargs)
+        entry = cache.get(key)
         mode = _OffloadMode(policy, engine_for, execute=True,
                             authoritative=authoritative,
-                            on_site_event=on_site_event)
+                            on_site_event=on_site_event, known=entry)
         out = mode.run(fn, args, kwargs)
-        _check_overrides(policy, mode.sites)
-        validate(mode.sites)
+        found = resolve(key, entry, mode)
         if observe is not None:
-            observe({site.name: site for site in mode.sites})
+            observe({site.name: site for site in found})
         return out
 
     def sites(*args, **kwargs) -> List[Site]:
-        found = site_report(fn, policy)(*args, **kwargs)
-        _check_overrides(policy, found)
-        validate(found)
-        return found
+        key = _signature(args, kwargs)
+        entry = cache.get(key)
+        if entry is not None:
+            stats["hits"] += 1
+            cache.move_to_end(key)
+            return entry.sites
+        mode = _OffloadMode(policy, None, execute=False)
+        mode.run(fn, args, kwargs)
+        return resolve(key, None, mode)
+
+    def cache_info() -> CacheInfo:
+        return CacheInfo(stats["hits"], stats["misses"], cache_size,
+                         len(cache))
+
+    def cache_clear() -> None:
+        cache.clear()
+        stats["hits"] = stats["misses"] = 0
+
+    def persist_info() -> PersistInfo:
+        return PersistInfo(pstats["disk_hits"],
+                           pstats["disk_decisions_hits"],
+                           pstats["disk_misses"],
+                           disk.directory if disk else None)
 
     wrapped.__name__ = f"offload({getattr(fn, '__name__', 'fn')})"
     wrapped.sites = sites
     wrapped.policy = policy
     wrapped.backend = backend
+    wrapped.cache_info = cache_info
+    wrapped.cache_clear = cache_clear
+    wrapped.persist_info = persist_info
     return wrapped
 
 
@@ -1021,7 +1764,7 @@ def site_report(fn, policy: PrecisionPolicy | None = None):
     def reporter(*args, **kwargs) -> List[Site]:
         mode = _OffloadMode(policy, None, execute=False)
         mode.run(fn, args, kwargs)
-        return mode.sites
+        return mode.decisions()
 
     reporter.__name__ = f"site_report({getattr(fn, '__name__', 'fn')})"
     return reporter

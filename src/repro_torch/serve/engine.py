@@ -38,8 +38,12 @@ cache's block gauges, and TTFT against ``latency_target_s`` feeding an
 :class:`~repro_torch.obs.SLOTracker`; ``metrics_port=`` also serves the
 run's registry live at ``/metrics``.
 
-Not ported: ``mesh`` (ROADMAP item 9) and ``warm_cache_dir`` (item 8)
-raise ``NotImplementedError``.
+Warm start, as in the reference: ``warm_cache_dir=`` persists the
+programs' offload decision caches there, so a restarted engine reads
+its site decisions from disk and checks them byte for byte (see
+:mod:`repro_torch.serve.runner`).
+
+Not ported: ``mesh`` (ROADMAP item 9) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -85,6 +89,8 @@ class Engine:
         equivalent).
       chunk_tokens: prefill chunk length (``None``: whole prompts).
       chunk_token_budget: cap on real tokens per prefill wave.
+      warm_cache_dir: persist the programs' offload decisions here
+        (ignored without a policy); a restarted engine reads them back.
       scheduler_policy: ``"fifo"`` (default) or ``"edf"``.
       metrics: optional :class:`repro_torch.obs.MetricsRun` (see the
         module docstring).
@@ -112,7 +118,7 @@ class Engine:
                  slo_objective: float = 0.99,
                  slo_window_s: float = 60.0,
                  device=None):
-        _not_ported(mesh=mesh, warm_cache_dir=warm_cache_dir)
+        _not_ported(mesh=mesh)
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; "
                              "have ('paged', 'dense')")
@@ -143,7 +149,8 @@ class Engine:
         self.runner = Runner(
             model, params, self.kv, max_len=self.max_len, policy=policy,
             plan=plan, metrics=metrics, chunk_tokens=chunk_tokens,
-            chunk_token_budget=chunk_token_budget)
+            chunk_token_budget=chunk_token_budget,
+            warm_cache_dir=warm_cache_dir)
         self.slo = None
         if metrics is not None:
             self.slo = SLOTracker(registry=metrics.registry,

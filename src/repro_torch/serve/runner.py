@@ -24,11 +24,24 @@ offloaded programs carry the run's ``site_exec`` hook, each prefill
 wave and decode tick is a ``prefill`` / ``decode_tick`` span that ends
 after the sampled tokens are read back to the host (so it covers the
 device's work, CUDA being asynchronous), and the first wave declares
-the prefill program's sites (``site_decl``), found by a native
-``site_report`` pass over zero inputs of the wave's shape.
+the prefill program's sites (``site_decl``) through the offload's
+``sites``, whose native report pass over zero inputs of the wave's
+shape fills the decision-cache entry the wave then hits.
 
-Not ported: meshes (ROADMAP item 9) and the persistent transform cache
-(``warm_cache_dir``, item 8); passing either raises
+Warm start (``warm_cache_dir``): the offload wrappers persist their
+decision caches there (``offload(persist_dir=)``, labels
+``serve_prefill_{layout}`` and ``serve_decode_{layout}``), and each
+entry's resolution is a ``transform_cache`` counter and event in the
+run, which ``python -m repro_torch.obs report --expect-cache-hit``
+reads.  A restarted server finds its decisions on disk and checks them
+byte for byte (``disk_decisions_hit``); an eager program has no
+exported program to restore, so nothing else is skipped.  The
+reference replaces the live hook by static ``site_exec`` accounting on
+a warm run, because its exported programs cannot carry a callback; the
+port's eager calls can, so the hook stays live.  The directory is
+ignored without a policy.
+
+Not ported: meshes (ROADMAP item 9); passing one raises
 ``NotImplementedError``.
 """
 
@@ -42,10 +55,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core import offload, site_report
+from ..core import offload
 from ..models import Model
+from ..obs import get_logger
 
 __all__ = ["Runner", "WaveResult"]
+
+log = get_logger("serve")
 
 
 class _Prefill:
@@ -77,7 +93,7 @@ class WaveResult:
 
 
 #: The ROADMAP item that ports each refused option.
-_ROADMAP_ITEM = {"mesh": 9, "warm_cache_dir": 8}
+_ROADMAP_ITEM = {"mesh": 9}
 
 
 def _not_ported(**options) -> None:
@@ -95,7 +111,7 @@ class Runner:
                  policy=None, chunk_tokens: Optional[int] = None,
                  chunk_token_budget: Optional[int] = None, mesh=None,
                  plan=None, metrics=None, warm_cache_dir=None):
-        _not_ported(mesh=mesh, warm_cache_dir=warm_cache_dir)
+        _not_ported(mesh=mesh)
         self.model = model
         self.metrics = metrics
         self._declared = False
@@ -111,15 +127,26 @@ class Runner:
                                    if chunk_token_budget else None)
         self.batch_slots = kv.batch_slots
         self.device = model.device
+        self._persist_dir = None
+        if warm_cache_dir is not None:
+            if policy is None:
+                log.debug("warm_cache_dir ignored: no policy/plan, so "
+                          "there is no decision cache to persist")
+            else:
+                self._persist_dir = warm_cache_dir
 
         if self.layout == "paged":
-            self._prefill_fn = model.prefill_chunk_paged
-            self._decode_fn = model.decode_step_paged
+            prefill_fn = model.prefill_chunk_paged
+            decode_fn = model.decode_step_paged
         else:
-            self._prefill_fn = model.prefill_chunk
-            self._decode_fn = model.decode_step
-        self._prefill_call = self._wrap(self._prefill_fn)
-        self._decode_call = self._wrap(self._decode_fn)
+            prefill_fn = model.prefill_chunk
+            decode_fn = model.decode_step
+        self._prefill_wrapped = self._wrap(
+            prefill_fn, f"serve_prefill_{self.layout}")
+        self._decode_wrapped = self._wrap(
+            decode_fn, f"serve_decode_{self.layout}")
+        self._prefill_call = self._prefill_wrapped or prefill_fn
+        self._decode_call = self._decode_wrapped or decode_fn
 
         self.cache = kv.init_cache()
         self._len = np.zeros(self.batch_slots, np.int64)
@@ -130,15 +157,26 @@ class Runner:
 
     # -- program wiring ----------------------------------------------
 
-    def _wrap(self, fn):
-        """The program as called: offloaded under a policy (with the
-        run's site hook when metrics are on), else plain."""
+    def _wrap(self, fn, label):
+        """The offloaded program (None without a policy): with the
+        run's site hook when metrics are on, its decisions persisted
+        under ``label`` on a warm start."""
         if self.policy is None:
-            return fn
+            return None
         hook = (self.metrics.site_event_handler()
                 if self.metrics is not None else None)
+        warm = ({} if self._persist_dir is None else dict(
+            persist_dir=self._persist_dir, fn_label=label,
+            on_cache_event=self._cache_event))
         return offload(fn, self.policy, plan=self.plan,
-                       plan_match="subset", on_site_event=hook)
+                       plan_match="subset", on_site_event=hook, **warm)
+
+    def _cache_event(self, kind: str) -> None:
+        if self.metrics is None:
+            return
+        self.metrics.registry.counter("transform_cache",
+                                      result=kind).inc()
+        self.metrics.event("transform_cache", result=kind)
 
     def _span(self, name, **kw):
         if self.metrics is None:
@@ -149,7 +187,8 @@ class Runner:
         """First wave: record the prefill program's site decisions, so
         ``python -m repro_torch.obs report --check`` can hold execution
         counts against them."""
-        if self.metrics is None or self.policy is None or self._declared:
+        if (self.metrics is None or self._prefill_wrapped is None
+                or self._declared):
             return
         self.metrics.declare_sites(self.sites_for(rows, width))
         self._declared = True
@@ -158,14 +197,16 @@ class Runner:
         return torch.as_tensor(array, device=self.device)
 
     def sites_for(self, rows: int, width: int):
-        """Site decisions of the prefill-chunk program for a wave shape.
+        """Site decisions of the prefill-chunk program for a wave shape,
+        through the offload's decision cache.
 
-        Runs the program once natively on zero inputs of that shape
-        (an eager program has no abstract trace).  The programs write
-        the cache in place, so the paged run writes only to the trash
-        block (piece length 0) and the dense run to a copy of slot 0.
+        On a miss the program runs once natively on zero inputs of that
+        shape (an eager program has no abstract trace), which fills the
+        entry a wave of that shape then hits.  The programs write the
+        cache in place, so the paged run writes only to the trash block
+        (piece length 0) and the dense run to a copy of slot 0.
         """
-        if self.policy is None:
+        if self._prefill_wrapped is None:
             return []
         tokens = self._tensor(np.zeros((rows, width), np.int32))
         start = self._tensor(np.zeros((rows,), np.int32))
@@ -180,7 +221,7 @@ class Runner:
             vec = self._tensor(np.ones((rows,), np.int32))
             args = (self.params, sub, sub, tokens, start, vec)
         with torch.no_grad():
-            return site_report(self._prefill_fn, self.policy)(*args)
+            return self._prefill_wrapped.sites(*args)
 
     # -- sampling ----------------------------------------------------
 

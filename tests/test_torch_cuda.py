@@ -418,3 +418,48 @@ def test_site_hook_adds_no_synchronization(m, k, n):
     assert launched == 3
     assert sum(counts.values()) - fired == launched
     assert counts == {"dot0": 2, "scan0/dot0": 4}
+
+
+@pytest.mark.parametrize("pred", [True, False])
+def test_control_flow_program_launches_k1_per_executed_site(pred):
+    # A while loop of 3 trips, a cond and a 3-operand einsum through
+    # pallas_int8_6: K1 launches once per executed site, which is what
+    # the hook counts; a user autograd.Function's product launches none.
+    from collections import Counter
+
+    from repro_torch.core import PrecisionPolicy, cond, offload, while_loop
+
+    class Opaque(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, y):
+            return x @ y
+
+        @staticmethod
+        def backward(ctx, g):
+            return None, None
+
+    x, y0 = _operands(256, 256, 256, 7, torch.float64)
+    a, w = _operands(256, 128, 256, 8, torch.float64)
+    b, c = _operands(128, 128, 512, 9, torch.float64)
+
+    def program(pred, x, y0, a, b, c, w):
+        y = while_loop(lambda v: v[0] < 3,
+                       lambda v: (v[0] + 1, (v[1] @ x) / 16.0), (0, y0))[1]
+        z = cond(pred, lambda t: t @ w, lambda t: (2.0 * t) @ w, a)
+        e = torch.einsum("ij,jk,kl->il", a, b, c)
+        return y, z, e, Opaque.apply(a, w)
+
+    hooked = Counter()
+    fn = offload(program, PrecisionPolicy(backend="pallas_int8_6"),
+                 on_site_event=lambda p: hooked.update([p["site"]]))
+    names = [s.name for s in fn.sites(pred, x, y0, a, b, c, w)]
+    assert names == ["while0/dot0", "cond1/br0/dot0", "cond1/br1/dot0",
+                     "dot0", "dot1"]
+    before = ops.LAUNCHES["split_gemm"]
+    out = fn(pred, x, y0, a, b, c, w)
+    torch.cuda.synchronize()
+    taken = f"cond1/br{int(pred)}/dot0"
+    assert hooked == Counter({"while0/dot0": 3, taken: 1, "dot0": 1,
+                              "dot1": 1})
+    assert ops.LAUNCHES["split_gemm"] - before == 6
+    assert torch.equal(out[3], a @ w)

@@ -47,7 +47,8 @@ def test_import_graph_has_no_jax_or_reference():
         "import repro_torch, repro_torch.core, repro_torch.kernels, "
         "repro_torch.apps, repro_torch.configs, repro_torch.models, "
         "repro_torch.serve, repro_torch.train, repro_torch.launch.train, "
-        "repro_torch.tune, repro_torch.obs, repro_torch.obs.cli\n"
+        "repro_torch.tune, repro_torch.obs, repro_torch.obs.cli, "
+        "repro_torch.analysis\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, "
         "run_name='not_main')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -194,13 +194,11 @@ class TestEngine:
         assert got == _run(small, prompts, batch_slots=4, max_len=64)
 
     def test_not_ported_options_raise(self, small):
-        # metrics and metrics_port are ported (tests/test_torch_obs*.py);
-        # a mesh and the warm cache still raise, naming their item.
-        for kw, item in ((dict(mesh=object()), 9),
-                         (dict(warm_cache_dir="x"), 8)):
-            with pytest.raises(NotImplementedError,
-                               match=f"ROADMAP item {item}"):
-                Engine(small, small.params, **kw)
+        # metrics and metrics_port are ported (tests/test_torch_obs*.py),
+        # warm_cache_dir too (TestWarmStart); a mesh still raises,
+        # naming its item.
+        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+            Engine(small, small.params, mesh=object())
 
 
 class TestPagedAndChunked:
@@ -376,3 +374,87 @@ class TestKVCacheManager:
                           num_blocks=2)
         with pytest.raises(ValueError, match="raise num_blocks"):
             kv.reserve(0, 40, 20)
+
+
+class TestWarmStart:
+    """The reference's ``tests/test_serve_paged.py::TestWarmStart`` on
+    the same model (its weights carried over)."""
+
+    def _run_once(self, model, warm_dir, metrics_dir, prompts):
+        """One serve 'process': a fresh engine, fresh decision caches
+        (they live on the engine's offload wrappers)."""
+        from repro_torch.obs import MetricsRun
+
+        pol = PrecisionPolicy(default_splits=6, min_dim=32)
+        with MetricsRun(metrics_dir) as run:
+            eng = Engine(model, model.params, batch_slots=2, max_len=64,
+                         policy=pol, warm_cache_dir=warm_dir, metrics=run)
+            out = [r.out for r in eng.run(_reqs(prompts, max_new=4))]
+            info = eng.runner._prefill_wrapped.persist_info()
+            dinfo = eng.runner._decode_wrapped.persist_info()
+        return out, info, dinfo
+
+    def test_restart_reuses_persisted_transforms(self, small, tmp_path):
+        """Kill-and-restart: the second process reads byte-identical
+        decisions back from disk and decides nothing anew."""
+        import json
+        import os
+
+        warm = tmp_path / "warm"
+        prompts = _prompts([5, 9, 13], seed=17)
+        out1, info1, dinfo1 = self._run_once(small, warm, tmp_path / "m1",
+                                             prompts)
+        assert info1.disk_misses > 0       # cold start wrote entries
+        files1 = {f: (warm / f).read_bytes()
+                  for f in os.listdir(warm) if f.endswith(".json")}
+        assert files1
+
+        out2, info2, dinfo2 = self._run_once(small, warm, tmp_path / "m2",
+                                             prompts)
+        assert out2 == out1
+        # Every entry came from disk; an eager program has no exported
+        # program to restore, so they are decisions-only hits.
+        assert info2.disk_misses == 0
+        assert info2.disk_hits + info2.disk_decisions_hits > 0
+        assert info2.disk_hits == 0
+        assert dinfo2.disk_misses == 0
+        files2 = {f: (warm / f).read_bytes()
+                  for f in os.listdir(warm) if f.endswith(".json")}
+        assert files2 == files1
+        for raw in files2.values():
+            json.loads(raw)  # stays valid JSON
+        assert out1 == _run(small, prompts, max_new=4, batch_slots=2,
+                            max_len=64, policy=PrecisionPolicy(
+                                default_splits=6, min_dim=32))
+
+    def test_directory_ignored_without_a_policy(self, small, tmp_path):
+        warm = tmp_path / "warm"
+        eng = Engine(small, small.params, batch_slots=2, max_len=64,
+                     warm_cache_dir=warm)
+        assert eng.runner._prefill_wrapped is None
+        eng.run(_reqs(_prompts([5, 9], seed=19), max_new=2))
+        assert not warm.exists()
+
+    def test_obs_check_gates_on_cache_hit(self, small, tmp_path):
+        """``obs report --check --expect-cache-hit`` passes on the warm
+        run and fails on the cold one."""
+        import io
+
+        from repro_torch.obs.cli import main as obs_main
+
+        warm = tmp_path / "warm"
+        prompts = _prompts([6, 10], seed=18)
+        self._run_once(small, warm, tmp_path / "m1", prompts)
+        self._run_once(small, warm, tmp_path / "m2", prompts)
+        buf = io.StringIO()
+        # Cold run: sites executed but nothing came from disk.
+        assert obs_main(["report", str(tmp_path / "m1"), "--check",
+                         "--expect-cache-hit"], out=buf) == 1
+        assert "CHECK FAIL" in buf.getvalue()
+        buf = io.StringIO()
+        # Warm run: the live hook still counts the executions and the
+        # decisions resolved from disk.
+        assert obs_main(["report", str(tmp_path / "m2"), "--check",
+                         "--expect-cache-hit"], out=buf) == 0, \
+            buf.getvalue()
+        assert "CHECK OK" in buf.getvalue()
