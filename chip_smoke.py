@@ -51,7 +51,14 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
 8. trains it: SmolLM-360M at full width through ``launch.train.main``,
    4 steps natively and 4 through ``pallas_int8_6``, the gradient
    emulated against native at each step, a kill-and-resume, one
-   profiled step of each;
+   profiled step of each; then on meshes of processes that share the
+   card over gloo (``phase_shard``): 2 steps at ``--mesh dp=2`` and at
+   ``--mesh dp=1,tp=5``, K1 held bitwise at every new per-shard shape,
+   each rank's K1 launches against its ``site_exec`` and the site
+   report, the dp=2 sites ``shmap0/`` + the single device's, step 1's
+   dp-reduced gradient against the single device's, the losses against
+   the emulated run above, and the tp=5 sharded checkpoint restored on
+   one device bit-equal to the ranks' final parameters;
 9. tunes it: calibrates the same train step through ``python -m
    repro_torch.tune``'s ``main`` (probe ``pallas_int8_6``, 2 batches),
    prints the solved split counts, holds K1 bitwise at every ((m, k,
@@ -1205,7 +1212,8 @@ def phase_train(errs, **overrides):
     k1_ms = phase_train_profile(spec, policy, overrides)
     return launches, dict(native_losses=native, emulated_losses=emul,
                           step_ms=_median_after_first(runs[spec]["step_ms"]),
-                          k1_ms=k1_ms)
+                          k1_ms=k1_ms, site_names=[s.name for s in sites],
+                          offloaded=len(on))
 
 
 def phase_train_resume(spec, overrides):
@@ -1315,6 +1323,236 @@ def phase_train_profile(spec, policy, overrides):
                           host_time=True)
     ops.LAUNCHES.update(saved)
     return k1_ms
+
+
+SHARD_STEPS = 2
+SHARD_DIR = os.path.join(ROOT, "build", "shard_smoke")
+# The meshes of the shard phase, each rank a process on the one card:
+# dp=2 (each rank half the batch) and tp=5 (the only tp > 1 that divides
+# SmolLM-360M's 15 heads, 5 kv heads and d_ff 2560).
+SHARD_MESHES = (("dp=2", 2, 1), ("dp=1,tp=5", 1, 5))
+SHARD_TIMEOUT = 600
+
+
+def shard_gemm_shapes(cfg, tokens, tp):
+    """(m, k, n) of every GEMM one rank of a dp x tp mesh offloads at the
+    default min_dim (128): each projection, MLP and head GEMM at its
+    per-shard (k, n) (q_dim/tp, kv_dim/tp, d_ff/tp; the head is
+    replicated) over the rank's ``tokens`` rows, and its dW and dX."""
+    d = cfg.d_model
+    q, kv, f = cfg.q_dim // tp, cfg.kv_dim // tp, cfg.d_ff // tp
+    kn = [(d, q), (d, kv), (q, d), (d, f), (f, d), (d, cfg.vocab_size)]
+    return sorted({shape for k, n in kn for shape in
+                   ((tokens, k, n), (n, tokens, k), (tokens, n, k))
+                   if min(shape) >= 128})
+
+
+def _sha256(tree):
+    import hashlib
+
+    from repro_torch.train.checkpoint import tree_flatten
+
+    return [hashlib.sha256(x.detach().cpu().numpy().tobytes()).hexdigest()
+            for x in tree_flatten(tree)]
+
+
+def _shard_grad_check(cfg, dev, policy):
+    """Step 1's gradient of a dp=2 rank, all-reduced over dp under
+    ``policy``; on rank 0, against the single-device emulated gradient
+    of the same seed and batch, worst leaf (max|diff| / max|reference|)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import offload, spmd_scope
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.shard import reduce_gradients, shard_batch, \
+        train_mesh_setup
+    from repro_torch.train import checkpoint
+
+    model = Model(cfg, device=dev, seed=0)
+    mesh, _, _, _ = train_mesh_setup("dp=2", 4, cfg)
+    batch = _train_batch(cfg, 0).to(dev)
+
+    def sharded_grads(params, rows):
+        with spmd_scope(mesh):
+            _, grads = train.loss_and_grads(model, params, rows)
+            return reduce_gradients(grads, "dp", 2, mesh=mesh)
+
+    got = offload(sharded_grads, policy)(model.params,
+                                         shard_batch(batch, mesh, "dp"))
+    if dist.get_rank():
+        return None
+    _, want = offload(train.loss_and_grads, policy)(model, model.params,
+                                                    batch)
+    paths = checkpoint.tree_flatten(_leaf_names(model.params))
+    rel = {}
+    for name, g, w in zip(paths, checkpoint.tree_flatten(got),
+                          checkpoint.tree_flatten(want)):
+        top, diff = float(w.abs().max()), float((g - w).abs().max())
+        rel[name] = diff / top if top else (0.0 if diff == 0 else np.inf)
+    leaf = max(rel, key=rel.get)
+    return leaf, rel[leaf]
+
+
+def _leaf_names(node, prefix=""):
+    """``node``'s tree with each leaf replaced by its dotted path."""
+    if isinstance(node, dict):
+        return {k: _leaf_names(v, f"{prefix}{k}.") for k, v in node.items()}
+    return prefix[:-1]
+
+
+def _shard_rank(mesh_spec, overrides):
+    """One rank of the shard phase: (dp=2 only) the step-1 gradient
+    check, then ``launch.train.main`` with ``--mesh`` on this rank's
+    process group, its K1 launches and shapes counted."""
+    import torch.distributed as dist
+
+    from repro_torch.core import PrecisionPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.shard import bucket_stats
+    from repro_torch.shard.launch import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device("cuda")
+    spec = f"pallas_int8_{TRAIN_SPLITS}"
+    model_cfg = _train_setup_cfg(overrides)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    if mesh_spec == "dp=2":
+        out["grad"] = _shard_grad_check(model_cfg, dev, PrecisionPolicy(
+            backend=spec, default_splits=TRAIN_SPLITS))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    ckpt = os.path.join(SHARD_DIR, mesh_spec.replace(",", "_"))
+    with _K1Shapes() as launched:
+        losses = train.main(train_argv(SHARD_STEPS, ckpt, spec, overrides)
+                            + ["--mesh", mesh_spec], device=dev,
+                            report=report)
+        torch.cuda.synchronize()
+    params, _ = report["state"]
+    on = [site for site in report["sites"] if site.offloaded]
+    out.update(
+        losses=losses, step_ms=report["step_ms"],
+        peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+        launches=dict(ops.LAUNCHES), site_exec=report["site_exec"],
+        shapes=sorted(launched.seen),
+        names=[site.name for site in report["sites"]], offloaded=len(on),
+        spmd=sorted({site.spmd for site in on}),
+        predicted=SHARD_STEPS * sum(s.batch * s.mult for s in on),
+        buckets=bucket_stats(params)[0], params=_sha256(params))
+    return out
+
+
+def _train_setup_cfg(overrides):
+    from repro_torch.configs import get_config
+    return get_config("smollm_360m").replace(**overrides)
+
+
+def phase_shard(errs, trained, **overrides):
+    """The trainer on a mesh of processes sharing the card, over gloo:
+    SmolLM-360M at full width through ``launch.train.main --mesh``,
+    ``pallas_int8_6``, 2 steps at dp=2 and at dp=1,tp=5.  Held: K1
+    bitwise at every new per-shard shape; each rank's K1 launches ==
+    its ``site_exec`` == the site report's prediction, at shapes K1 was
+    held at; the dp=2 sites ``shmap0/`` + the single-device names, as
+    many offloaded; step 1's dp-reduced gradient against the
+    single-device emulated one within ``TRAIN_GRAD_BOUND``; the losses
+    against phase 8's emulated run within ``TRAIN_LOSS_BOUND``; the
+    tp=5 checkpoint, restored on one device in this process and cut to
+    each rank's blocks, bit-equal to the ranks' final parameters.  Returns
+    K1's launches over every rank and the new per-shard shapes."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.shard import Mesh, shard_state, train_state_specs
+    from repro_torch.shard.launch import spawn
+    from repro_torch.train import AdamW, checkpoint
+
+    cfg = _train_setup_cfg(overrides)
+    tokens = 4 * 128
+    known = set(train_gemm_shapes(cfg, tokens))
+    held = {spec: shard_gemm_shapes(cfg, tokens // dp, tp)
+            for spec, dp, tp in SHARD_MESHES}
+    new = sorted({shape for shapes in held.values() for shape in shapes}
+                 - known)
+    phase_k1_train_shapes(errs, new, tag="shard")
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    launches = {key: 0 for key in ops.LAUNCHES}
+    for spec, dp, tp in SHARD_MESHES:
+        t0 = time.perf_counter()
+        ranks = spawn(_shard_rank, dp * tp, (spec, overrides),
+                      device="cuda", timeout=SHARD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            print(f"[shard] {spec} rank {r['rank']}: backend {r['backend']}"
+                  f", step ms {r['step_ms']}, peak memory {r['peak']:.2f} "
+                  f"GiB, K1 launches {r['launches']['split_gemm']} (site_exec"
+                  f" {r['site_exec']}, predicted {r['predicted']}), "
+                  f"{r['offloaded']} of {len(r['names'])} sites offloaded "
+                  f"{r['spmd']}, {r['buckets']} gradient buckets, losses "
+                  f"{r['losses']}", flush=True)
+            for key, val in r["launches"].items():
+                launches[key] += val
+            if not (r["launches"]["split_gemm"] == r["site_exec"]
+                    == r["predicted"] > 0):
+                fail(f"shard {spec} rank {r['rank']}: K1 launches "
+                     f"{r['launches']} != site_exec {r['site_exec']} or "
+                     f"the site report's {r['predicted']}")
+            if not set(r["shapes"]) <= set(held[spec]) | known:
+                fail(f"shard {spec}: K1 launched at "
+                     f"{sorted(set(r['shapes']) - set(held[spec]))}, "
+                     "shapes it was not held at")
+            want = trained["emulated_losses"][:SHARD_STEPS]
+            rel = [abs(g - w) / abs(w) for g, w in zip(r["losses"], want)]
+            print(f"[shard] {spec} rank {r['rank']}: |loss - single-device "
+                  f"emulated| / loss {rel} (bound {TRAIN_LOSS_BOUND})")
+            if len(rel) != SHARD_STEPS or max(rel) > TRAIN_LOSS_BOUND:
+                fail(f"shard {spec} losses {r['losses']} against the single"
+                     f" device's {want}")
+        print(f"[shard] {spec}: {dp * tp} ranks in {wall:.1f} s")
+        if spec == "dp=2":
+            want = ["shmap0/" + name for name in trained["site_names"]]
+            for r in ranks:
+                if r["names"] != want or r["offloaded"] != trained[
+                        "offloaded"]:
+                    fail(f"dp=2 rank {r['rank']} sites {r['names']} "
+                         f"({r['offloaded']} offloaded) are not shmap0/ + "
+                         f"the single device's ({trained['offloaded']})")
+            leaf, rel = ranks[0]["grad"]
+            print(f"[shard] dp=2 step-1 gradient all-reduced over dp "
+                  f"against the single-device emulated step, worst leaf "
+                  f"{leaf} {rel:.3e} (bound {TRAIN_GRAD_BOUND})")
+            if not rel <= TRAIN_GRAD_BOUND:
+                fail(f"dp=2 step-1 gradient {leaf} {rel}")
+        else:
+            t0 = time.perf_counter()
+            model = Model(cfg, device="cuda", seed=0)
+            like = (model.params, AdamW().init(model.params))
+            ckpt = os.path.join(SHARD_DIR, spec.replace(",", "_"))
+            state = checkpoint.restore(ckpt, SHARD_STEPS, like)
+            del like, model
+            specs = train_state_specs(cfg)[0]
+            for r in ranks:
+                mesh = Mesh({"dp": dp, "tp": tp}, rank=r["rank"])
+                got = _sha256(shard_state(state[0], specs, mesh))
+                if got != r["params"]:
+                    fail(f"tp=5 checkpoint restored on one device differs "
+                         f"from rank {r['rank']}'s parameters")
+            names = sorted(os.listdir(os.path.join(
+                ckpt, f"step_{SHARD_STEPS:08d}")))
+            print(f"[shard] {spec} checkpoint {names} restored on one "
+                  f"device: each rank's parameter blocks bit-equal to its "
+                  f"final ones ({time.perf_counter() - t0:.1f} s)")
+            del state
+            torch.cuda.empty_cache()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    return launches, new
 
 
 TUNE_BATCHES = 2
@@ -2623,6 +2861,8 @@ def main():
     torch.cuda.empty_cache()
     train_launches, trained = phase_train(errs)
     torch.cuda.empty_cache()
+    shard_launches, shard_shapes = phase_shard(errs, trained)
+    torch.cuda.empty_cache()
     tune_launches, tune_pairs = phase_tune(errs, trained)
     torch.cuda.empty_cache()
     obs_launches = phase_obs(served, trained)
@@ -2632,18 +2872,23 @@ def main():
     cf_launches = phase_control_flow()
     torch.cuda.empty_cache()
     # Launch counts per kernel: the main paths' runs (MuST, serve, train,
-    # the tune phase's plan-driven train and serve, both again with
-    # telemetry on, the warm-started serve and the control-flow program)
-    # and K3's A/B path, each read with the counters zeroed before it.
+    # the mesh's ranks, the tune phase's plan-driven train and serve, both
+    # again with telemetry on, the warm-started serve and the
+    # control-flow program) and K3's A/B path, each read with the
+    # counters zeroed before it.
     total = {key: launches[key] + serve_launches[key] + v1_launches[key]
-             + train_launches[key] + tune_launches[key] + obs_launches[key]
+             + train_launches[key] + shard_launches[key]
+             + tune_launches[key] + obs_launches[key]
              + warm_launches[key] + cf_launches[key] for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
-          f"train {train_launches}, tune {tune_launches}, obs "
+          f"train {train_launches}, shard ranks {shard_launches}, tune "
+          f"{tune_launches}, obs "
           f"{obs_launches}, warm start {warm_launches}, control flow "
           f"{cf_launches}, v1 A/B {v1_launches}")
     shapes = k1_timed_shapes()
     shapes += [pair for pair in tune_pairs if pair not in shapes][:3]
+    shapes += [(shape, TRAIN_SPLITS) for shape in shard_shapes
+               if (shape, TRAIN_SPLITS) not in shapes]
     rows = (phase_k1_timings(errs, total, shapes)
             + phase_timings(errs, total))
     print(json.dumps({"kernels": rows}))

@@ -22,6 +22,9 @@ Package map:
     (the reference's file format);
   * ``repro_torch.launch``  — the trainer, ``python -m
     repro_torch.launch.train``;
+  * ``repro_torch.shard``   — meshes of processes (one rank per mesh
+    position, gloo or NCCL), the LM's axis rules and the gradient
+    all-reduce of the dp×tp train step;
   * ``repro_torch.tune``    — precision plans: calibrate, solve, the
     plan artifact, ``python -m repro_torch.tune``;
   * ``repro_torch.obs``     — telemetry: metrics registry, spans, JSONL

@@ -11,8 +11,8 @@ Layers:
 from .backends import (GemmBackend, example_specs, get_backend,
                        register_backend, registered_families)
 from .intercept import (OFFLOAD_CACHE_SIZE, CacheInfo, PersistInfo, Site,
-                        cond, offload, scan, site_report, switch,
-                        while_loop)
+                        cond, offload, scan, site_report, spmd_mesh,
+                        spmd_scope, switch, while_loop)
 from .ozaki import (SLICE_BITS, num_pair_gemms, ozaki_matmul,
                     pair_indices, slice_matrix)
 from .precision import (AdaptiveGemm, PrecisionPolicy, SiteState,
@@ -47,6 +47,8 @@ __all__ = [
     "site_report",
     "slice_matrix",
     "splits_for_tolerance",
+    "spmd_mesh",
+    "spmd_scope",
     "switch",
     "while_loop",
 ]

@@ -135,7 +135,18 @@ process decides afresh and byte-verifies against the file
 warning when they differ.  The reference's ``jit_entries`` and
 ``transform_jaxpr`` have no eager counterpart.
 
-Not ported yet: ``shard_map`` and ``pmap`` scopes (ROADMAP item 9).
+SPMD.  :func:`spmd_scope` is the port's ``shard_map`` body: each rank
+of a mesh of processes runs the block on its own shard, and under an
+offload the block is a ``shmap{i}/`` scope on the flow counter ``scan``,
+``cond`` and ``while`` share, so a sharded train step's sites are
+``shmap0/`` and the single-device step's names.  Every site inside
+records the mesh's axes (``Site.spmd``, ``[dp=4,tp=2]`` in its
+``repr``) and sees its per-shard extents, which are what the gates and
+the tile pick read.  A gradient pass inside the block names its
+cotangents in the block, as ``value_and_grad`` inside the reference's
+body does.  Collectives are no sites.  The decision cache's key holds
+the axes of the meshes a call runs under.  ``pmap`` has no torch
+counterpart and is not ported.
 """
 
 from __future__ import annotations
@@ -164,8 +175,8 @@ from .backends import GemmBackend, get_backend
 from .precision import PrecisionPolicy
 
 __all__ = ["offload", "scan", "cond", "switch", "while_loop",
-           "site_report", "Site", "CacheInfo", "PersistInfo",
-           "OFFLOAD_CACHE_SIZE"]
+           "spmd_scope", "spmd_mesh", "site_report", "Site", "CacheInfo",
+           "PersistInfo", "OFFLOAD_CACHE_SIZE"]
 
 #: Default bound on each wrapper's decision cache: a serving loop meets
 #: an open-ended stream of signatures (every wave shape is one), so the
@@ -248,14 +259,16 @@ def _sites_bytes(sites) -> bytes:
                       separators=(",", ":")).encode()
 
 
-def _signature(args, kwargs) -> tuple:
+def _signature(args, kwargs, spmd=()) -> tuple:
     """The decision cache's key: the pytree spec of ``(args, kwargs)``,
-    per leaf its abstract value, and the grad mode.
+    per leaf its abstract value, the grad mode and the meshes ``spmd``.
 
     A tensor is its shape, dtype, device type and ``requires_grad``; a
     Python scalar its type, marked weak as the reference marks it;
     anything else its type.  ``requires_grad`` and the grad mode decide
-    which backward sites a call has.
+    which backward sites a call has.  ``spmd`` holds the axes of the
+    meshes the call runs under (:func:`_spmd_key`), so one signature
+    under two meshes never shares an entry.
     """
     leaves, spec = tree_flatten((args, kwargs))
     sig = []
@@ -266,14 +279,23 @@ def _signature(args, kwargs) -> tuple:
         else:
             sig.append(((), type(x).__name__,
                         isinstance(x, (bool, int, float, complex))))
-    return spec, tuple(sig), torch.is_grad_enabled()
+    return spec, tuple(sig), torch.is_grad_enabled(), spmd
+
+
+def _spmd_key(fn) -> tuple:
+    """The meshes a call of ``fn`` runs under: those of the
+    :func:`spmd_scope` blocks around the call, and the one ``fn``
+    declares it enters (its ``spmd_axes`` attribute, which the sharded
+    train step carries)."""
+    return (tuple(m.spmd_axes for m in _MESHES.stack),
+            tuple(getattr(fn, "spmd_axes", ())))
 
 
 def _persist_key(fn_label, key, policy, plan, hooked) -> str:
     """The reference's content address of one entry: the function's
     label, the input structure and signature, the policy, the plan's
     fingerprint, whether a hook rides along and the library version."""
-    spec, sig, grad = key
+    spec, sig, grad, spmd = key
     payload = {
         "format": _PERSIST_FORMAT,
         "fn": fn_label,
@@ -285,6 +307,8 @@ def _persist_key(fn_label, key, policy, plan, hooked) -> str:
         "hooked": bool(hooked),
         "torch": torch.__version__,
     }
+    if any(spmd):
+        payload["spmd"] = spmd
     blob = json.dumps(payload, sort_keys=True, separators=(",", ":"))
     return hashlib.sha256(blob.encode()).hexdigest()[:32]
 
@@ -669,12 +693,16 @@ class _Scope:
     predicate, or one branch of a ``cond``."""
 
     def __init__(self, prefix: str = "", mult: int = 1,
-                 record: bool = True):
+                 record: bool = True, spmd_axes=(), spmd_body=False):
         self.prefix = prefix
         self.mult = mult
         self.dots = 0        # dot{j} counter
-        self.flows = 0       # scan/while/cond counter (the reference's)
+        self.flows = 0       # scan/while/cond/shmap counter
         self.record = record   # False on a loop's later iterations
+        self.spmd_axes = tuple(spmd_axes)   # the enclosing meshes' axes
+        # An spmd_scope's body: a gradient pass inside it names its
+        # cotangents in the body itself, as the top level does.
+        self.spmd_body = spmd_body
 
 
 class _Active(threading.local):
@@ -749,7 +777,7 @@ def scan(body, carry, xs):
     if mode is not None:
         parent = mode.scopes[-1]
         scope = _Scope(mode.open_flow("scan"), parent.mult * n,
-                       parent.record)
+                       parent.record, parent.spmd_axes)
         mode.scopes.append(scope)
     ys = []
     try:
@@ -812,6 +840,51 @@ def while_loop(cond_fun, body_fun, init_val):
             val = body_fun(val)
         return val
     return mode.run_while(cond_fun, body_fun, init_val)
+
+
+class _Meshes:
+    """The meshes of the :func:`spmd_scope` blocks running in this
+    process, innermost last.  Process-wide, not per thread: a backward
+    site runs on autograd's device thread and reads it there too."""
+
+    def __init__(self):
+        self.stack: list = []
+
+
+_MESHES = _Meshes()
+
+
+@contextlib.contextmanager
+def spmd_scope(mesh):
+    """Run the block as this rank's part of one SPMD program over
+    ``mesh`` (a :class:`repro_torch.shard.Mesh`): the port's
+    ``shard_map`` body.
+
+    Under :func:`offload` or :func:`site_report` the block is a
+    ``shmap{i}/`` scope on the flow counter ``scan``, ``cond`` and
+    ``while`` share, and every site inside records ``mesh.spmd_axes``
+    (``Site.spmd``, ``Site.flops`` times the mesh's size, ``[dp=2,tp=1]``
+    in its ``repr``).  A gradient pass inside the block names its
+    cotangents in the block, as ``value_and_grad`` inside a
+    ``shard_map`` body does.  Collectives are no sites.  Anywhere, the
+    block binds the mesh's axis names for
+    :mod:`repro_torch.shard.collectives` (:func:`spmd_mesh`).
+    """
+    mode = _active()
+    _MESHES.stack.append(mesh)
+    try:
+        if mode is None:
+            yield mesh
+        else:
+            with mode.spmd(mesh):
+                yield mesh
+    finally:
+        _MESHES.stack.pop()
+
+
+def spmd_mesh():
+    """The mesh of the innermost :func:`spmd_scope` running, or None."""
+    return _MESHES.stack[-1] if _MESHES.stack else None
 
 
 class _Call:
@@ -883,10 +956,10 @@ def _tile_choice(backend_spec: str, m, k, n, splits, dtype):
 
 
 def _classify(dims, dtype, policy: PrecisionPolicy, name: str,
-              mult: int = 1) -> Site:
+              mult: int = 1, spmd_axes=()) -> Site:
     """Decide whether one matmul site gets offloaded."""
     m, k, n = dims.M, dims.K, dims.N
-    geom = dict(m=m, k=k, n=n, batch=dims.B, mult=mult)
+    geom = dict(m=m, k=k, n=n, batch=dims.B, mult=mult, spmd_axes=spmd_axes)
 
     def skip(reason, eligible=False, backend=""):
         return Site(name, dims.lhs_shape, dims.rhs_shape, dtype, False, 0,
@@ -994,9 +1067,10 @@ class _Product:
     """A forward product that takes a gradient: what its backward sites
     are made of, and which of its operands need a cotangent."""
 
-    def __init__(self, dims, out_shape, dtype, mult, needs):
+    def __init__(self, dims, out_shape, dtype, mult, spmd_axes, needs):
         self.dims, self.out_shape = dims, tuple(out_shape)
         self.dtype, self.mult = dtype, mult
+        self.spmd_axes = spmd_axes
         self.needs_lhs, self.needs_rhs = needs
 
     def cotangent(self, which: str) -> _Dims:
@@ -1060,12 +1134,12 @@ class _SiteMatmul(torch.autograd.Function):
 _FUNCTION_APPLY = torch.autograd.Function.apply.__func__.__code__
 
 
-def _same_product(site: Site, dims, dtype, mult) -> bool:
+def _same_product(site: Site, dims, dtype, mult, spmd_axes) -> bool:
     """Whether ``site``'s record is the decision for this product."""
     return ((site.lhs_shape, site.rhs_shape, site.m, site.k, site.n,
-             site.batch, site.mult, site.dtype)
+             site.batch, site.mult, site.dtype, site.spmd_axes)
             == (tuple(dims.lhs_shape), tuple(dims.rhs_shape), dims.M,
-                dims.K, dims.N, dims.B, mult, dtype))
+                dims.K, dims.N, dims.B, mult, dtype, tuple(spmd_axes)))
 
 
 class _Entry:
@@ -1198,6 +1272,14 @@ class _OffloadMode(TorchFunctionMode):
         finally:
             self.scopes.pop()
 
+    def spmd(self, mesh):
+        """The scope of an :func:`spmd_scope` body: ``shmap{i}/`` on the
+        flow counter, every site inside carrying the mesh's axes."""
+        parent = self.scopes[-1]
+        return self.within(_Scope(
+            self.open_flow("shmap"), parent.mult, parent.record,
+            parent.spmd_axes + tuple(mesh.spmd_axes), spmd_body=True))
+
     def run_switch(self, index: int, branches, operands):
         """One ``cond``/``switch``: branch ``index`` runs, every other is
         recorded (:meth:`not_run`), and under grad its outputs name the
@@ -1206,7 +1288,8 @@ class _OffloadMode(TorchFunctionMode):
         group = self.open_flow("cond")
         out = None
         for b, branch in enumerate(branches):
-            scope = _Scope(f"{group}br{b}/", parent.mult, parent.record)
+            scope = _Scope(f"{group}br{b}/", parent.mult, parent.record,
+                           parent.spmd_axes)
             if b == index:
                 with self.within(scope):
                     out = branch(*operands)
@@ -1233,8 +1316,9 @@ class _OffloadMode(TorchFunctionMode):
     def run_while(self, cond_fun, body_fun, val):
         parent = self.scopes[-1]
         prefix = self.open_flow("while")
-        test = _Scope(prefix + "cond/", parent.mult, parent.record)
-        body = _Scope(prefix, parent.mult, parent.record)
+        test = _Scope(prefix + "cond/", parent.mult, parent.record,
+                      parent.spmd_axes)
+        body = _Scope(prefix, parent.mult, parent.record, parent.spmd_axes)
         ran = False
         while True:
             test.dots = test.flows = 0
@@ -1299,17 +1383,19 @@ class _OffloadMode(TorchFunctionMode):
 
     # -- decisions ----------------------------------------------------
 
-    def _decide(self, name: str, dims, dtype, mult) -> Site:
+    def _decide(self, name: str, dims, dtype, mult, spmd_axes) -> Site:
         """The decision for one product: this call's or the entry's
         record under ``name`` when it describes the same product, else
         the gates and the tile pick."""
         site = self.decided.get(name)
         if site is None and self.known is not None:
             site = self.known.by_name.get(name)
-        if site is None or not _same_product(site, dims, dtype, mult):
+        if site is None or not _same_product(site, dims, dtype, mult,
+                                             spmd_axes):
             if self.known is not None:
                 self.stale = True
-            site = _classify(dims, dtype, self.policy, name, mult)
+            site = _classify(dims, dtype, self.policy, name, mult,
+                             spmd_axes)
         self.decided[name] = site
         return site
 
@@ -1347,11 +1433,12 @@ class _OffloadMode(TorchFunctionMode):
                                   old[1] or rhs in useful)
         self.pass_needs = needs
         self.pass_no += 1
-        self.backward_scopes = {"": self.scopes[0]}
+        self.backward_scopes = {s.prefix: s for s in self.scopes
+                                if s is self.scopes[0] or s.spmd_body}
         self.backward = {}
 
-    def _note_product(self, prefix, j, dims, out_shape, dtype, mult, needs,
-                      nodes):
+    def _note_product(self, prefix, j, dims, out_shape, dtype, mult,
+                      spmd_axes, needs, nodes):
         """Record forward dot ``j`` of scope ``prefix`` as taking a
         gradient (an operand needs one on some iteration), and this
         run's autograd ``nodes``."""
@@ -1359,7 +1446,8 @@ class _OffloadMode(TorchFunctionMode):
         found = self.products.setdefault(prefix, [])
         found.extend([None] * (j + 1 - len(found)))
         if found[j] is None:
-            found[j] = _Product(dims, out_shape, dtype, mult, needs)
+            found[j] = _Product(dims, out_shape, dtype, mult, spmd_axes,
+                                needs)
         else:
             found[j].needs_lhs |= needs[0]
             found[j].needs_rhs |= needs[1]
@@ -1442,7 +1530,7 @@ class _OffloadMode(TorchFunctionMode):
                     continue
                 site = self._decide(f"{scope.prefix}dot{scope.dots}",
                                     prod.cotangent(which), prod.dtype,
-                                    prod.mult)
+                                    prod.mult, prod.spmd_axes)
                 scope.dots += 1
                 self.sites.append(site)
                 self.sort_keys[site.name] = self._sort_key(prefix, j, which)
@@ -1525,7 +1613,7 @@ class _OffloadMode(TorchFunctionMode):
         j = scope.dots
         scope.dots += 1
         site = self._decide(f"{scope.prefix}dot{j}", dims, dtype,
-                            scope.mult)
+                            scope.mult, scope.spmd_axes)
         if scope.record:
             self.sites.append(site)
             self._note_payload(site)
@@ -1561,7 +1649,8 @@ class _OffloadMode(TorchFunctionMode):
             if dims.swap:
                 edges = edges[::-1]
             self._note_product(scope.prefix, j, dims, y.shape, dtype,
-                               scope.mult, needs, (node, *edges))
+                               scope.mult, scope.spmd_axes, needs,
+                               (node, *edges))
         return out
 
 
@@ -1705,7 +1794,7 @@ def offload(fn, policy: PrecisionPolicy | None = None, *,
         return found
 
     def wrapped(*args, **kwargs):
-        key = _signature(args, kwargs)
+        key = _signature(args, kwargs, _spmd_key(fn))
         entry = cache.get(key)
         mode = _OffloadMode(policy, engine_for, execute=True,
                             authoritative=authoritative,
@@ -1717,7 +1806,7 @@ def offload(fn, policy: PrecisionPolicy | None = None, *,
         return out
 
     def sites(*args, **kwargs) -> List[Site]:
-        key = _signature(args, kwargs)
+        key = _signature(args, kwargs, _spmd_key(fn))
         entry = cache.get(key)
         if entry is not None:
             stats["hits"] += 1

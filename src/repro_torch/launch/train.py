@@ -45,30 +45,57 @@ at ``/metrics``; ``--metrics-push-url`` pushes it to an aggregating
 server every ``--log-every`` steps.  Inspect a run with ``python -m
 repro_torch.obs report|export|attrib|diff``.
 
-Not ported yet; these raise ``NotImplementedError`` naming their
-ROADMAP item: ``--mesh``, ``--grad-reduce`` other than ``bucketed`` and
-``--bucket-mb`` (item 9, with ``build_sharded_train_step``).
+``--mesh dp=N`` runs the same step data-parallel over N ranks
+(:func:`build_sharded_train_step`), one process per mesh position
+(:mod:`repro_torch.shard.launch`): the trainer starts them itself (or
+joins ``torchrun``'s), over gloo on the CPU or when ranks share a card
+and over NCCL when each has its own.  Each rank runs the step on its
+rows of the batch; the loss is averaged and the gradients mean-reduced
+over ``dp`` with a *bucketed* all-reduce (leaves grouped by byte size,
+one collective per bucket, issued after the backward; ``--bucket-mb``
+sets the size, ``--grad-reduce`` picks the blocking baseline or a
+``ppermute`` ring instead).  ``--mesh dp=N,tp=M`` adds Megatron-style
+tensor parallelism: attention heads and the SwiGLU hidden dim split
+over ``tp`` per :mod:`repro_torch.shard.rules`, each sublayer closed by
+an all-reduce over the tp group, and checkpoints written as one npz
+per tp shard and a manifest (the reference's layout), which a later run
+resumes on any mesh or none.  With ``--backend`` the step runs under
+the offload inside :func:`repro_torch.core.spmd_scope`, so its sites
+are ``shmap0/...`` and each sees its per-shard extents.  Rank 0 logs,
+prints the site report, writes the telemetry and the plan; the other
+ranks stay silent, or push their registry with ``--metrics-push-url``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
+import threading
 import time
 from typing import List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..configs import get_config
 from ..core import PrecisionPolicy, get_backend, offload
 from ..models import Model
-from ..obs import (MetricsRun, MetricsServer, NumericsMonitor, get_logger,
-                   push_snapshot)
+from ..core.intercept import spmd_scope
+from ..obs import (MetricsRun, MetricsServer, NumericsMonitor, Registry,
+                   get_logger, push_snapshot)
+from ..shard import (DEFAULT_BUCKET_BYTES, DP_AXIS, GRAD_REDUCE_MODES,
+                     TP_AXIS, all_reduce_mean, bucket_stats,
+                     reduce_gradients, shard_batch, shard_state,
+                     train_mesh_setup, validate_tp)
+from ..shard.launch import (is_rank_zero, mesh_ranks, rank_device,
+                            run_on_mesh)
 from ..train import AdamW, SyntheticText, checkpoint
 from ..tune import PrecisionPlan, count_int8_gemms
 
-__all__ = ["main", "build_train_step", "loss_and_grads"]
+__all__ = ["main", "build_train_step", "build_sharded_train_step",
+           "loss_and_grads"]
 
 log = get_logger("train")
 offload_log = get_logger("offload")
@@ -104,6 +131,58 @@ def loss_and_grads(model: Model, params, batch):
         loss = model.loss(checkpoint.tree_unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), checkpoint.tree_unflatten(params, grads)
+
+
+def build_sharded_train_step(model: Model, opt: AdamW, mesh,
+                             axis: str | None = None, *,
+                             grad_reduce: str = "bucketed",
+                             bucket_bytes: int = DEFAULT_BUCKET_BYTES):
+    """dp(×tp)-parallel version of :func:`build_train_step` for one rank
+    of ``mesh`` (a :class:`repro_torch.shard.Mesh`).
+
+    The step takes this rank's state and rows: ``params`` and
+    ``opt_state`` as :func:`repro_torch.shard.train_mesh_setup` places
+    them, the batch as :func:`repro_torch.shard.shard_batch` cuts it.
+    It computes the loss and its gradient on the rows, averages the
+    loss over the dp axis and mean-reduces the gradient there with
+    :func:`repro_torch.shard.reduce_gradients` (``grad_reduce``,
+    ``bucket_bytes``), then applies the same AdamW update as every other
+    rank, so the global step is the single-device step on the whole
+    batch.  The buckets go out after ``torch.autograd.grad`` returns.
+
+    With a ``tp`` axis of size > 1 the model runs tensor-parallel over
+    the mesh's tp group (:meth:`Model.tp_view`) on the rank's blocks of
+    the parameters, and AdamW updates those blocks elementwise.
+
+    The whole step runs inside :func:`repro_torch.core.spmd_scope`, so
+    wrapped in :func:`offload` its forward and backward sites are named
+    ``shmap0/...`` and are decided on their per-shard extents
+    (``q_dim/tp``, ``d_ff/tp``, the rank's rows for ``dW``).  The step
+    carries ``spmd_axes``, which the offload's decision cache keys on.
+    """
+    dp = axis or mesh.axis_names[0]
+    if dp == TP_AXIS and len(mesh.axis_names) > 1:
+        dp = next(a for a in mesh.axis_names if a != TP_AXIS)
+    if grad_reduce not in GRAD_REDUCE_MODES:
+        raise ValueError(f"unknown gradient-reduce mode {grad_reduce!r}; "
+                         f"expected one of {GRAD_REDUCE_MODES}")
+    tp = mesh.shape.get(TP_AXIS, 1)
+    dp_size = mesh.shape[dp]
+    if tp > 1:
+        validate_tp(model.cfg, tp)
+        model = model.tp_view(mesh.groups[TP_AXIS])
+
+    def sharded_train_step(params, opt_state, batch):
+        with spmd_scope(mesh):
+            loss, grads = loss_and_grads(model, params, batch)
+            loss = all_reduce_mean(loss, dp, mesh=mesh)
+            grads = reduce_gradients(grads, dp, dp_size, mode=grad_reduce,
+                                     bucket_bytes=bucket_bytes, mesh=mesh)
+            params, opt_state = opt.update(grads, params, opt_state)
+        return params, opt_state, loss
+
+    sharded_train_step.spmd_axes = mesh.spmd_axes
+    return sharded_train_step
 
 
 def _describe_sites(sites) -> None:
@@ -150,13 +229,21 @@ def _parse(argv):
                          "precision configuration (a warning instead "
                          "of an error)")
     ap.add_argument("--mesh", default="",
-                    help="dp/tp mesh (not ported yet: ROADMAP item 9)")
+                    help="mesh spec: 'dp=8' (data parallel) or "
+                         "'dp=4,tp=2' (2-D: tp splits attention heads "
+                         "and the MLP hidden dim); empty = one process. "
+                         "The trainer starts one rank per position "
+                         "(or joins torchrun's)")
     ap.add_argument("--grad-reduce", default="bucketed",
-                    choices=["bucketed", "blocking", "ppermute"],
-                    help="gradient all-reduce on the dp axis (ROADMAP "
-                         "item 9)")
+                    choices=list(GRAD_REDUCE_MODES),
+                    help="gradient all-reduce strategy on the dp axis "
+                         "(bucketed = one all-reduce per bucket, "
+                         "bit-identical to the per-leaf mean at dp=2; "
+                         "blocking = one over every leaf; ppermute = "
+                         "ring, replicas agree to rounding only)")
     ap.add_argument("--bucket-mb", type=float, default=0.0,
-                    help="gradient bucket size (ROADMAP item 9)")
+                    help="gradient bucket size in MiB for "
+                         "--grad-reduce bucketed; 0 = default (4)")
     ap.add_argument("--min-dim", type=int, default=128,
                     help="offload size gate: min(m,k,n) for emulation")
     ap.add_argument("--ckpt-dir", default="",
@@ -184,19 +271,6 @@ def _parse(argv):
     return ap.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    unported = [
-        (args.mesh, "--mesh", 9),
-        (args.grad_reduce != "bucketed", "--grad-reduce", 9),
-        (args.bucket_mb, "--bucket-mb", 9),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported to repro_torch yet (ROADMAP item "
-                f"{item})")
-
-
 def _run_tune(args, cfg, train_step, params, opt_state, batch_at,
               start) -> None:
     """``--tune N --plan path``: calibrate, solve, save, report."""
@@ -214,6 +288,8 @@ def _run_tune(args, cfg, train_step, params, opt_state, batch_at,
     for i in range(args.tune):
         cal.run(params, opt_state, batch_at(start + i))
     plan = solve_plan(cal.result(), budget=args.budget or None)
+    if not is_rank_zero():
+        return
     path = plan.save(args.plan)
     tiles_path = write_tiles_table(plan, path)
     log_report(get_logger("tune"), report_plan(plan, cal.sites))
@@ -252,16 +328,23 @@ def _check_resume_plan(ckpt_dir, start: int, plan,
 
 
 def main(argv: Optional[Sequence[str]] = None, device=None,
-         report: Optional[dict] = None) -> List[float]:
+         report: Optional[dict] = None,
+         timeout: Optional[float] = None) -> List[float]:
     """Run the loop; returns the per-step losses of THIS invocation.
 
     ``device`` overrides ``--device``.  ``report``, if given, is filled
     with this run's ``sites`` (an emulated run's site list), its
-    ``int8_gemms_per_step`` and each step's wall milliseconds
-    (``step_ms``, the loss read back to the host included).
+    ``int8_gemms_per_step``, each step's wall milliseconds (``step_ms``,
+    the loss read back to the host included) and ``site_exec``, the
+    executions of offloaded sites the offload's hook counted.  Under a
+    mesh it also gets ``state``, the rank's final ``(params,
+    opt_state)`` blocks, when the process is a rank itself; when the
+    trainer starts the ranks, the report is rank 0's and ``ranks``
+    holds every rank's (without ``state``).  ``timeout`` bounds, in
+    seconds, a run whose ranks the trainer starts (their join and their
+    process group's collectives).
     """
     args = _parse(argv)
-    _refuse_unported(args)
     if args.tune and not args.plan:
         raise SystemExit("[train] --tune needs --plan (where to write "
                          "the calibrated plan)")
@@ -270,6 +353,32 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
                          "precision configurations; pass one (with "
                          "--tune, --backend sets the probe family)")
     dev = resolve_device(device if device is not None else args.device)
+    if args.mesh and not dist.is_initialized():
+        world = mesh_ranks(args.mesh)
+        argv = list(sys.argv[1:] if argv is None else argv)
+        results = run_on_mesh(_main_rank, world,
+                              (argv, str(dev), report is not None),
+                              device=dev, timeout=timeout, log=log)
+        if report is not None:
+            report.update(results[0][1])
+            report["ranks"] = [rep for _, rep in results]
+        return results[0][0]
+    return _train(args, dev, report)
+
+
+def _main_rank(argv, device, want_report):
+    """One rank of a mesh run the trainer started: its losses and its
+    report (``state`` left out, it stays in the rank)."""
+    report = {} if want_report else None
+    losses = main(argv, device=device, report=report)
+    if report is not None:
+        report.pop("state", None)
+    return losses, report
+
+
+def _train(args, dev, report) -> List[float]:
+    if args.mesh:
+        dev = rank_device(dev)
     cfg = get_config(args.arch)
     if args.overrides:
         cfg = cfg.replace(**json.loads(args.overrides))
@@ -279,21 +388,48 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
                          args.global_batch, seed=args.seed)
     ckpt_dir = args.ckpt_dir or f"runs/ckpt/{args.arch}"
 
-    params = model.params
-    opt_state = opt.init(params)
+    params, opt_state = model.params, None
     start = checkpoint.latest_step(ckpt_dir) or 0
     if start:
         log.info(f"resuming from step {start} in {ckpt_dir}")
         params, opt_state = checkpoint.restore(ckpt_dir, start,
-                                               (params, opt_state))
+                                               (params, opt.init(params)))
     if start >= args.steps and not args.tune:
         log.info(f"checkpoint step {start} >= --steps "
                  f"{args.steps}; nothing to do")
         return []
-    train_step = build_train_step(model, opt)
+
+    mesh = state_specs = None
+    bucket_bytes = (int(args.bucket_mb * (1 << 20)) if args.bucket_mb
+                    else DEFAULT_BUCKET_BYTES)
+    if args.mesh:
+        mesh, _, _, state_specs = train_mesh_setup(
+            args.mesh, args.global_batch, cfg)
+        dp, tp = mesh.shape[DP_AXIS], mesh.shape[TP_AXIS]
+        if tp > 1:
+            # The global state every rank holds alike, cut to its blocks.
+            params = shard_state(params, state_specs[0], mesh)
+            if opt_state is not None:
+                opt_state = shard_state(opt_state, state_specs[1], mesh)
+        log.info(f"mesh {args.mesh}: {mesh.size} ranks (dp={dp} tp={tp}) "
+                 f"over {dist.get_backend() if mesh.size > 1 else 'none'}"
+                 f" on {dev.type}, per-shard batch "
+                 f"{args.global_batch // dp}, grad-reduce {args.grad_reduce}")
+        if args.grad_reduce == "bucketed":
+            n_buckets, per_bucket = bucket_stats(params, bucket_bytes)
+            log.info(f"gradient buckets: {n_buckets} all-reduce(s), "
+                     f"{[round(b / 1024) for b in per_bucket]} KiB")
+        train_step = build_sharded_train_step(
+            model, opt, mesh, grad_reduce=args.grad_reduce,
+            bucket_bytes=bucket_bytes)
+    else:
+        train_step = build_train_step(model, opt)
+    if opt_state is None:
+        opt_state = opt.init(params)
 
     def batch_at(step):
-        return torch.as_tensor(data.batch(step), device=dev)
+        batch = torch.as_tensor(data.batch(step), device=dev)
+        return batch if mesh is None else shard_batch(batch, mesh, DP_AXIS)
 
     if args.tune:
         _run_tune(args, cfg, train_step, params, opt_state, batch_at,
@@ -310,24 +446,39 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
         "backend": args.backend or None,
         "plan_path": args.plan or None,
     }
+    # A tp mesh writes the per-shard layout (one npz per tp shard and a
+    # manifest, every rank of the first dp row writing its own shard);
+    # restore reassembles the global tree, so a later resume may use any
+    # mesh shape, or none.  Otherwise rank 0 writes the one file.
+    tp_sharded = mesh is not None and mesh.shape[TP_AXIS] > 1
 
-    # Telemetry (repro_torch.obs): one MetricsRun per invocation,
-    # scoped to the checkpoint lineage by default.
-    metrics = None
-    if args.metrics_dir != "none":
+    def save_ckpt(step_no, state):
+        if tp_sharded:
+            checkpoint.save_sharded(ckpt_dir, step_no, state, state_specs,
+                                    mesh, meta=ckpt_meta)
+        elif is_rank_zero():
+            checkpoint.save(ckpt_dir, step_no, state, meta=ckpt_meta)
+
+    # Telemetry (repro_torch.obs): one MetricsRun per invocation, scoped
+    # to the checkpoint lineage by default, written by rank 0 alone.
+    telemetry = args.metrics_dir != "none"
+    metrics = registry = None
+    if telemetry and is_rank_zero():
         metrics = MetricsRun(args.metrics_dir or f"{ckpt_dir}/metrics")
+        registry = metrics.registry
         metrics.event("config", arch=args.arch, steps=args.steps,
                       start=start, seq_len=args.seq_len,
                       global_batch=args.global_batch,
                       backend=args.backend or None,
                       plan=args.plan or None, mesh=args.mesh or None)
+    elif telemetry and args.metrics_push_url:
+        # Another rank: its registry goes to the aggregator only.
+        registry = Registry()
     # Live observability: a pull endpoint over this run's registry
     # and/or periodic pushes into another process's aggregator.
     mserver = None
-    push_url = args.metrics_push_url if metrics is not None else ""
-    rank = (torch.distributed.get_rank()
-            if torch.distributed.is_available()
-            and torch.distributed.is_initialized() else 0)
+    push_url = args.metrics_push_url if registry is not None else ""
+    rank = dist.get_rank() if dist.is_initialized() else 0
     push_source = f"train-proc{rank}"
     if metrics is not None and args.metrics_port is not None:
         mserver = MetricsServer(metrics.registry, port=args.metrics_port,
@@ -340,11 +491,11 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
         if not push_url:
             return
         try:
-            push_snapshot(push_url, push_source, metrics.registry)
+            push_snapshot(push_url, push_source, registry)
         except OSError as e:
             log.warning(f"metrics push to {push_url} failed: {e}")
 
-    on_site_event = metrics.site_event_handler() if metrics else None
+    on_site_event = _site_event_handler(metrics, registry, report)
     monitor = None
     policy = None
     if plan is not None:
@@ -374,13 +525,15 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
         offload_log.info(f"{int8_per_step} INT8 GEMMs per step")
         if metrics is not None:
             metrics.declare_sites(sites)
-            if args.numerics_every > 0:
-                monitor = NumericsMonitor(
-                    train_step, plan=plan,
-                    policy=None if plan is not None else policy,
-                    every=args.numerics_every,
-                    registry=metrics.registry, sink=metrics.sink,
-                    log=log)
+        if telemetry and args.numerics_every > 0:
+            # Every rank checks (the check runs the step, collectives
+            # and all); rank 0 records.
+            monitor = NumericsMonitor(
+                train_step, plan=plan,
+                policy=None if plan is not None else policy,
+                every=args.numerics_every, registry=registry,
+                sink=metrics.sink if metrics is not None else None,
+                log=log)
     else:
         step_fn, sites, int8_per_step = train_step, [], 0
     if report is not None:
@@ -420,19 +573,20 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
                 t_last = now
                 push_metrics()
             if (step + 1) % args.ckpt_every == 0:
-                checkpoint.save(ckpt_dir, step + 1, (params, opt_state),
-                                meta=ckpt_meta)
-        checkpoint.save(ckpt_dir, args.steps, (params, opt_state),
-                        meta=ckpt_meta)
+                save_ckpt(step + 1, (params, opt_state))
+        save_ckpt(args.steps, (params, opt_state))
     finally:
-        if metrics is not None:
+        if registry is not None:
             # The site hook runs as each product is issued (backward
             # ones on autograd's threads, done when the step returns),
             # so the execution counters are complete here.
             push_metrics()
+        if metrics is not None:
             metrics.close()
         if mserver is not None:
             mserver.close()
+    if report is not None and mesh is not None:
+        report["state"] = (params, opt_state)
     log.info(f"done at step {args.steps}; checkpoint in {ckpt_dir}")
     if metrics is not None:
         log.info(f"telemetry: {metrics.sink.path} (inspect with "
@@ -440,6 +594,34 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
         if report is not None:
             report["metrics_dir"] = str(metrics.directory)
     return losses
+
+
+def _site_event_handler(metrics, registry, report):
+    """The offload's hook: the telemetry's (rank 0), a bare ``site_exec``
+    counter in a pushing rank's registry, and the report's tally."""
+    handlers = []
+    if metrics is not None:
+        handlers.append(metrics.site_event_handler())
+    elif registry is not None:
+        handlers.append(lambda payload: registry.counter(
+            "site_exec", site=payload.get("site", "?")).inc())
+    if report is not None:
+        lock = threading.Lock()
+        report["site_exec"] = 0
+
+        def tally(payload: dict) -> None:
+            with lock:
+                report["site_exec"] += 1
+        handlers.append(tally)
+    if not handlers:
+        return None
+    if len(handlers) == 1:
+        return handlers[0]
+
+    def handler(payload: dict) -> None:
+        for fn in handlers:
+            fn(payload)
+    return handler
 
 
 if __name__ == "__main__":

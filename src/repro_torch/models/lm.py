@@ -48,17 +48,31 @@ backward pass is deterministic on the card: the embedding gather is
 fixed order, where ``weight[tokens]``'s backward adds them atomically),
 grouped-query heads are repeated by ``expand`` (whose backward is a
 sum, where ``repeat_interleave``'s is an atomic index add), and the
-softmaxes stop the gradient at their max, as ``jax.nn`` does.  Not
-ported: tensor parallelism (``tp_axis``).
+softmaxes stop the gradient at their max, as ``jax.nn`` does.
+
+Tensor parallelism.  ``Model(cfg, tp=group)`` (or :meth:`Model.tp_view`
+of a model) runs the block math Megatron-style for one rank of a tp
+process group, on that rank's blocks of the parameters
+(:mod:`repro_torch.shard.rules`): ``wq``/``wk``/``wv`` and
+``w_gate``/``w_up`` column-parallel, ``wo``/``w_down`` row-parallel.
+Each block's normed input passes :class:`_TPEnter` (identity forward,
+all-reduce of the gradient backward), and the outputs of ``wo`` and
+``w_down`` pass :class:`_TPExit` (all-reduce forward, identity
+backward), the reference's ``_tp_enter``/``_tp_exit``.  The head counts
+come from the local shapes, so the same code runs the full model and
+any shard width.  The two are user ``autograd.Function`` classes,
+which the offload leaves opaque.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import ctypes.util
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -202,6 +216,45 @@ def _paged_view(pool, attend, head_dim):
     return torch.movedim(buf, 1, 2)
 
 
+class _TPEnter(torch.autograd.Function):
+    """Identity forward, all-reduce over the tp group backward.
+
+    Megatron's ``f`` around the replicated input of a tensor-parallel
+    block: each rank's backward yields only its shard's part of the
+    input's gradient, and the all-reduce completes it, so the residual
+    stream and every replicated parameter upstream see the whole
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _TPExit(torch.autograd.Function):
+    """All-reduce over the tp group forward, identity backward.
+
+    Megatron's ``g`` after a row-parallel product (``wo``, ``w_down``):
+    it sums the ranks' partial products into the replicated output; the
+    gradient arriving is replicated already."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def params_from_reference(params, device=None) -> dict:
     """The reference's parameter pytree (arrays, e.g. ``np.asarray`` of
     each leaf) as the port's parameter dict of tensors on ``device``."""
@@ -223,16 +276,32 @@ class Model(nn.Module):
     The module owns the parameters (random from ``seed`` until
     :meth:`load_params` replaces them); the programs are functions of
     ``(params, ...)`` like the reference's, with ``params`` the dict
-    :attr:`params` returns.
+    :attr:`params` returns.  ``tp``, a process group, makes the block
+    math tensor-parallel over it (module docstring); the programs then
+    take this rank's blocks of the parameters.
     """
 
-    def __init__(self, cfg: LMConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: LMConfig, device=None, seed: int = 0, tp=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = _dtype(cfg.dtype)
         self.param_dtype = _dtype(cfg.param_dtype)
+        self.tp = tp
         self._init_params(seed)
+
+    def tp_view(self, tp) -> "Model":
+        """This model's programs, tensor-parallel over the process group
+        ``tp`` (``None``: not), sharing its parameters."""
+        view = copy.copy(self)
+        view.tp = tp
+        return view
+
+    def _tp_in(self, x):
+        return x if self.tp is None else _TPEnter.apply(x, self.tp)
+
+    def _tp_out(self, x):
+        return x if self.tp is None else _TPExit.apply(x, self.tp)
 
     # -- parameters --------------------------------------------------
 
@@ -306,7 +375,7 @@ class Model(nn.Module):
         """Project + reshape + rope.  x: (B, T, d) -> q/k/v heads."""
         cfg = self.cfg
         B, T = x.shape[:2]
-        h = _rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        h = self._tp_in(_rms_norm(x, lp["attn_norm"], cfg.norm_eps))
         q = (h @ lp["wq"]).reshape(B, T, -1, cfg.head_dim)
         k = (h @ lp["wk"]).reshape(B, T, -1, cfg.head_dim)
         v = (h @ lp["wv"]).reshape(B, T, -1, cfg.head_dim)
@@ -314,14 +383,14 @@ class Model(nn.Module):
 
     def _attn_out(self, lp, x, o):
         B, T = x.shape[:2]
-        return x + o.reshape(B, T, -1) @ lp["wo"]
+        return x + self._tp_out(o.reshape(B, T, -1) @ lp["wo"])
 
     def _mlp(self, lp, x):
-        h = _rms_norm(x, lp["mlp_norm"], self.cfg.norm_eps)
+        h = self._tp_in(_rms_norm(x, lp["mlp_norm"], self.cfg.norm_eps))
         g = (h @ lp["w_gate"]).to(ISLAND_DTYPE)
         gate = g * torch.sigmoid(g)
         up = (h @ lp["w_up"]).to(ISLAND_DTYPE)
-        return x + (gate * up).to(x.dtype) @ lp["w_down"]
+        return x + self._tp_out((gate * up).to(x.dtype) @ lp["w_down"])
 
     @staticmethod
     def _repeat_kv(kv, num_heads):

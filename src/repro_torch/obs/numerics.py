@@ -26,8 +26,11 @@ core :func:`repro_torch.core.ozaki_matmul` at the policy's splits,
 accumulator and ``slice_bits`` against the float64 product, normalized
 by ``|A| @ |B|``.  An eager program's sites are only known once it has
 run, so the first check finds the probe site with a native
-``site_report`` pass first.  The reference's ``pmax`` over SPMD axes
-waits for the port's mesh (ROADMAP item 9).
+``site_report`` pass first.  Under a mesh (a step inside
+:func:`repro_torch.core.spmd_scope`) the realized error is MAX-shared
+over every rank of the mesh when the check reads it, so every rank
+reports the same global value, as the reference's ``pmax`` makes it:
+every rank must run the check.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.backends import GemmBackend
-from ..core.intercept import Site, offload
+from ..core.intercept import Site, offload, spmd_mesh
 from ..core.ozaki import ozaki_matmul
 from ..core.precision import PrecisionPolicy
 from .log import get_logger
@@ -72,6 +75,7 @@ class _ProbeGemm(GemmBackend):
         self.probe_site: Optional[str] = None
         self._lock = threading.Lock()
         self._err: Optional[torch.Tensor] = None
+        self._mesh = None
 
     def observe_sites(self, decisions: Dict[str, Site]) -> None:
         self._meta.update(decisions)
@@ -85,13 +89,18 @@ class _ProbeGemm(GemmBackend):
     def reset(self) -> None:
         with self._lock:
             self._err = None
+            self._mesh = None
 
     def realized(self) -> Optional[float]:
-        """The pass's worst error (one read of the device), or None if
-        the probe site did not run."""
+        """The pass's worst error over the mesh it ran under (one read of
+        the device), or None if the probe site did not run."""
         with self._lock:
-            err = self._err
-        return None if err is None else float(err.item())
+            err, mesh = self._err, self._mesh
+        if err is None:
+            return None
+        if mesh is not None:
+            err = mesh.all_max(err.clone().reshape(1))[0]
+        return float(err.item())
 
     def matmul(self, a, b, *, out_dtype=None, num_splits=None,
                site: str = "default"):
@@ -109,9 +118,12 @@ class _ProbeGemm(GemmBackend):
             denom = torch.matmul(a.abs().to(real), b.abs().to(real))
             denom = torch.where(denom == 0, torch.ones_like(denom), denom)
             err = torch.max(torch.abs(emul - ref) / denom)
+            mesh = spmd_mesh()
             with self._lock:
                 self._err = (err if self._err is None
                              else torch.maximum(self._err, err))
+                if mesh is not None:
+                    self._mesh = mesh
         return native if out_dtype is None else native.to(out_dtype)
 
 

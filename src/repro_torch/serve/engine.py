@@ -43,7 +43,9 @@ programs' offload decision caches there, so a restarted engine reads
 its site decisions from disk and checks them byte for byte (see
 :mod:`repro_torch.serve.runner`).
 
-Not ported: ``mesh`` (ROADMAP item 9) raises ``NotImplementedError``.
+Not ported: ``mesh`` (sharded serving, ROADMAP item 13: slot groups per
+dp rank, request routing and a KV cache split over tp) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -41,8 +41,8 @@ a warm run, because its exported programs cannot carry a callback; the
 port's eager calls can, so the hook stays live.  The directory is
 ignored without a policy.
 
-Not ported: meshes (ROADMAP item 9); passing one raises
-``NotImplementedError``.
+Not ported: meshes (sharded serving, ROADMAP item 13); passing one
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ class WaveResult:
 
 
 #: The ROADMAP item that ports each refused option.
-_ROADMAP_ITEM = {"mesh": 9}
+_ROADMAP_ITEM = {"mesh": 13}
 
 
 def _not_ported(**options) -> None:

@@ -18,6 +18,16 @@ The statistics reach the host by ``.item()``, so every site call
 synchronizes with the device: calibration is an offline pass, not a
 timed one.  Repeated calls and batch elements aggregate by max.
 
+Under a mesh (a step that runs inside :func:`repro_torch.core.spmd_scope`)
+each rank measures its own shard.  At the end of each pass, before they
+reach the recorder, the pass's per-site ``err``, ``amax_l`` and
+``amax_r`` are MAX-all-reduced over the whole mesh, so every rank
+records the same global numbers and a sharded calibration agrees with a
+single-device one on one plan, as the reference's ``pmax`` makes it.
+The reference shares per site call; the port shares once per pass, in
+sorted site order, which is the same maximum and one collective a pass,
+whose order no rank can get wrong.
+
 The reference picks its reference dtype by ``jax_enable_x64`` (float64
 with it, float32 without).  Torch has no such mode, so
 ``Calibrator(..., reference_dtype=)`` names it: float64 by default (the
@@ -43,7 +53,7 @@ import numpy as np
 import torch
 
 from ..core.backends import GemmBackend
-from ..core.intercept import Site, offload
+from ..core.intercept import Site, offload, spmd_mesh
 from ..core.ozaki import ozaki_matmul
 from ..core.precision import PrecisionPolicy, canonical_site
 from .plan import dtype_name, site_set_fingerprint
@@ -102,6 +112,9 @@ class _CalibrationGemm(GemmBackend):
         self.floors: Dict[str, float] = {}
         #: the decisions of the last call, in discovery order.
         self.last_sites: List[Site] = []
+        # This pass's per-site maxima and calls, recorded by flush().
+        self._pass: Dict[str, List[float]] = {}
+        self._mesh = None
 
     def observe_sites(self, decisions: Dict[str, Site]) -> None:
         self.last_sites = list(decisions.values())
@@ -124,13 +137,35 @@ class _CalibrationGemm(GemmBackend):
         denom = torch.matmul(a.abs().to(real), b.abs().to(real))
         denom = torch.where(denom == 0, torch.ones_like(denom), denom)
         err = float(torch.max(torch.abs(emul - ref) / denom))
-        st = self.stats.setdefault(
-            site, {"err": 0.0, "al": 0.0, "ar": 0.0, "calls": 0})
-        st["err"] = max(st["err"], err)
-        st["al"] = max(st["al"], float(a.abs().max()))
-        st["ar"] = max(st["ar"], float(b.abs().max()))
-        st["calls"] += 1
+        mesh = spmd_mesh()
+        if mesh is not None:
+            self._mesh = mesh
+        got = self._pass.setdefault(site, [0.0, 0.0, 0.0, 0])
+        got[0] = max(got[0], err)
+        got[1] = max(got[1], float(a.abs().max()))
+        got[2] = max(got[2], float(b.abs().max()))
+        got[3] += 1
         return native if out_dtype is None else native.to(out_dtype)
+
+    def flush(self) -> None:
+        """Record the pass's statistics, MAX-shared over the mesh it ran
+        under (module docstring)."""
+        names = sorted(self._pass)
+        if self._mesh is not None:
+            shared = torch.tensor([self._pass[n][:3] for n in names],
+                                  dtype=torch.float64).reshape(-1, 3)
+            self._mesh.all_max(shared)
+            for n, row in zip(names, shared.tolist()):
+                self._pass[n][:3] = row
+        for n in names:
+            err, al, ar, calls = self._pass[n]
+            st = self.stats.setdefault(
+                n, {"err": 0.0, "al": 0.0, "ar": 0.0, "calls": 0})
+            st["err"] = max(st["err"], err)
+            st["al"] = max(st["al"], al)
+            st["ar"] = max(st["ar"], ar)
+            st["calls"] += calls
+        self._pass, self._mesh = {}, None
 
 
 def _exp_of(amax: float) -> int:
@@ -199,6 +234,7 @@ class Calibrator:
     def run(self, *args, **kwargs):
         """One instrumented pass; returns ``fn``'s (native) output."""
         out = self._wrapped(*args, **kwargs)
+        self._gemm.flush()
         sites = self._gemm.last_sites
         fp = site_set_fingerprint(sites)
         if self._fingerprint is None:

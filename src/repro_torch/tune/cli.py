@@ -18,22 +18,36 @@ the reference's CLI measures against without x64.
 
 Consume the plan with ``launch/train.py --plan`` (training) and
 ``Engine(plan=...)`` (serving); ``launch/train.py --tune N --plan path``
-runs the same calibrate-and-solve flow inline.  ``--mesh`` is not
-ported (ROADMAP item 9).
+runs the same calibrate-and-solve flow inline.
+
+``--mesh dp=N[,tp=M]`` calibrates the program a ``--mesh`` training run
+executes, through the trainer's bring-up
+(:func:`repro_torch.shard.train_mesh_setup`), one rank per mesh
+position (started here, or ``torchrun``'s): ``--target step`` the
+sharded train step (per-shard extents, tp all-reduces), ``--target
+loss`` the loss averaged over ``dp``, as the reference's per-shard loss.
+The statistics are MAX-shared over the mesh
+(:mod:`repro_torch.tune.calibrate`) and rank 0 writes the plan; a ``dp``
+calibration of the loss gives the single-device plan, byte for byte.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..configs import get_config
-from ..core import PrecisionPolicy, get_backend
+from ..core import PrecisionPolicy, get_backend, spmd_scope
 from ..models import Model
 from ..obs.log import get_logger
+from ..shard import DP_AXIS, all_reduce_mean, shard_batch, train_mesh_setup
+from ..shard.launch import (is_rank_zero, mesh_ranks, rank_device,
+                            run_on_mesh)
 from ..train import AdamW, SyntheticText
 from .calibrate import Calibrator
 from .plan import write_tiles_table
@@ -129,36 +143,67 @@ def _parse(argv):
                     help="end-to-end relative error budget; 0 = "
                          "derive from the model dtype")
     ap.add_argument("--mesh", default="",
-                    help="data-parallel calibration (not ported yet: "
-                         "ROADMAP item 9)")
+                    help="calibrate the sharded program: 'dp=8' or "
+                         "'dp=4,tp=2', one rank per position (started "
+                         "here, or torchrun's)")
     ap.add_argument("--plan", required=True,
                     help="output path for the plan JSON")
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> List[str]:
+def main(argv: Optional[Sequence[str]] = None,
+         timeout: Optional[float] = None) -> List[str]:
+    """Calibrate, solve, save; returns the report's lines (rank 0's
+    under a mesh).  ``timeout`` bounds, in seconds, a run whose ranks
+    this starts."""
     args = _parse(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh is not ported to repro_torch yet (ROADMAP item 9)")
+    if args.mesh and not dist.is_initialized():
+        world = mesh_ranks(args.mesh)
+        dev = resolve_device(args.device)
+        argv = list(sys.argv[1:] if argv is None else argv)
+        return run_on_mesh(_main_rank, world, (argv,), device=dev,
+                           timeout=timeout, log=log)[0]
+    return _tune(args)
+
+
+def _main_rank(argv) -> List[str]:
+    return main(argv)
+
+
+def _tune(args) -> List[str]:
     dev = resolve_device(args.device)
+    if args.mesh:
+        dev = rank_device(dev)
     cfg = get_config(args.arch)
     model = Model(cfg, device=dev, seed=args.seed)
     opt = AdamW(lr=args.lr)
     data = SyntheticText(cfg.vocab_size, args.seq_len,
                          args.global_batch, seed=args.seed)
     params = model.params
+    opt_state = opt.init(params)
+
+    mesh = None
+    if args.mesh:
+        # The trainer's bring-up, so a step plan is calibrated on the
+        # per-shard extents (and tp all-reduces) a --mesh run executes.
+        # The loss target keeps the whole parameters on every rank, as
+        # the reference's per-shard loss does.
+        mesh, _, state, _ = train_mesh_setup(
+            args.mesh, args.global_batch, cfg,
+            (params, opt_state) if args.target == "step" else None)
+        if state is not None:
+            params, opt_state = state
 
     if args.target == "step":
-        from ..launch.train import build_train_step
+        from ..launch.train import build_sharded_train_step, build_train_step
 
-        fn = build_train_step(model, opt)
-        opt_state = opt.init(params)
+        fn = (build_sharded_train_step(model, opt, mesh)
+              if mesh is not None else build_train_step(model, opt))
 
         def call_args(batch):
             return (params, opt_state, batch)
     else:
-        fn = model.loss
+        fn = model.loss if mesh is None else _sharded_loss(model, mesh)
 
         def call_args(batch):
             return (params, batch)
@@ -166,12 +211,29 @@ def main(argv: Optional[Sequence[str]] = None) -> List[str]:
     policy = tune_policy(args.backend, args.min_dim)
     cal = Calibrator(fn, policy, reference_dtype=reference_dtype(cfg.dtype))
     for i in range(max(args.batches, 1)):
-        cal.run(*call_args(torch.as_tensor(data.batch(i), device=dev)))
+        batch = torch.as_tensor(data.batch(i), device=dev)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh, DP_AXIS)
+        cal.run(*call_args(batch))
     result = cal.result()
     plan = solve_plan(result, budget=args.budget or None)
-    path = plan.save(args.plan)
-    tiles_path = write_tiles_table(plan, path)
     report = report_plan(plan, cal.sites)
-    log_report(log, report)
-    log.info(f"plan written to {path} (tile decisions: {tiles_path})")
+    if is_rank_zero():
+        path = plan.save(args.plan)
+        tiles_path = write_tiles_table(plan, path)
+        log_report(log, report)
+        log.info(f"plan written to {path} (tile decisions: {tiles_path})")
     return report.splitlines()
+
+
+def _sharded_loss(model, mesh):
+    """The loss of this rank's rows averaged over ``dp``, inside the
+    mesh's SPMD scope: the reference's per-shard ``pmean`` of
+    ``model.loss``."""
+    def sharded_loss(params, batch):
+        with spmd_scope(mesh):
+            return all_reduce_mean(model.loss(params, batch), DP_AXIS,
+                                   mesh=mesh)
+
+    sharded_loss.spmd_axes = mesh.spmd_axes
+    return sharded_loss

@@ -463,3 +463,19 @@ def test_control_flow_program_launches_k1_per_executed_site(pred):
                               "dot1": 1})
     assert ops.LAUNCHES["split_gemm"] - before == 6
     assert torch.equal(out[3], a @ w)
+
+
+def test_gloo_reduces_cuda_tensors_of_ranks_sharing_a_card():
+    # The mesh's ranks on one card talk over gloo, which must have been
+    # built with CUDA support: an all-reduce and a bucketed mean.
+    import torch_shard_workers as workers
+    from repro_torch.shard.launch import spawn
+
+    ranks = spawn(workers.cuda_gloo, 2, device="cuda", timeout=120)
+    for got in ranks:
+        if torch.cuda.device_count() == 1:
+            assert got["backend"] == "gloo"
+        assert got["device"].startswith("cuda")
+        assert np.array_equal(got["sum"], np.full(1000, 3.0))
+        assert np.array_equal(got["a"], np.arange(10.0) * 1.5)
+        assert np.array_equal(got["b"], np.ones((3, 3)))

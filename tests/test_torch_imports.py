@@ -48,7 +48,7 @@ def test_import_graph_has_no_jax_or_reference():
         "repro_torch.apps, repro_torch.configs, repro_torch.models, "
         "repro_torch.serve, repro_torch.train, repro_torch.launch.train, "
         "repro_torch.tune, repro_torch.obs, repro_torch.obs.cli, "
-        "repro_torch.analysis\n"
+        "repro_torch.analysis, repro_torch.shard, repro_torch.shard.launch\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, "
         "run_name='not_main')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -196,8 +196,8 @@ class TestEngine:
     def test_not_ported_options_raise(self, small):
         # metrics and metrics_port are ported (tests/test_torch_obs*.py),
         # warm_cache_dir too (TestWarmStart); a mesh still raises,
-        # naming its item.
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        # naming its item (sharded serving).
+        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
             Engine(small, small.params, mesh=object())
 
 

@@ -322,14 +322,17 @@ class TestCheckpoint:
         assert checkpoint_ref.latest_step(tmp_path) == 3
 
     def test_sharded_layout_is_not_ported(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            checkpoint.save_sharded(tmp_path, 1, {}, None, None)
+        # The sharded layout is ported now (tests/test_torch_checkpoint_
+        # sharded.py): a step directory with a manifest counts as a step,
+        # and one whose manifest is not the layout's is refused.
         step_dir = tmp_path / "step_00000005"
         step_dir.mkdir()
         (step_dir / "manifest.json").write_text("{}")
         assert checkpoint.latest_step(tmp_path) == 5
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(CheckpointError, match="manifest"):
             checkpoint.restore(tmp_path, 5, {"x": torch.zeros(2)})
+        with pytest.raises(CheckpointError, match="manifest"):
+            checkpoint.load_meta(tmp_path, 5)
 
 
 def _with_grad(params):
@@ -466,14 +469,25 @@ class TestMain:
         train_main(_cli(2, d, ckpt_every=10), device="cpu")
         assert train_main(_cli(2, d, ckpt_every=10), device="cpu") == []
 
-    @pytest.mark.parametrize("flags,item", [
-        (["--mesh", "dp=2"], 9), (["--grad-reduce", "ppermute"], 9),
-        (["--bucket-mb", "2"], 9),
-        (["--tune", "1", "--plan", "p.json", "--mesh", "dp=2"], 9)])
-    def test_unported_flags_raise(self, tmp_path, flags, item):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            train_main(_cli(1, tmp_path) + flags, device="cpu")
-        assert checkpoint.latest_step(tmp_path) is None
+    # These flags were refused before the mesh was ported; each is taken
+    # now: a mesh trains (or tunes) on its ranks, the reduce flags are
+    # the mesh's and leave a one-process run as it was.
+    @pytest.mark.parametrize("flags,ranks", [
+        (["--mesh", "dp=2"], 2), (["--grad-reduce", "ppermute"], 1),
+        (["--bucket-mb", "2"], 1),
+        (["--tune", "1", "--plan", "{tmp}/p.json", "--mesh", "dp=2"], 2)])
+    def test_unported_flags_raise(self, tmp_path, flags, ranks):
+        flags = [f.format(tmp=tmp_path) for f in flags]
+        report = {}
+        losses = train_main(_cli(1, tmp_path) + flags, device="cpu",
+                            report=report, timeout=120)
+        assert len(report.get("ranks", [report])) == ranks
+        if "--tune" in flags:
+            assert losses == [] and (tmp_path / "p.json").is_file()
+            assert checkpoint.latest_step(tmp_path) is None
+        else:
+            assert len(losses) == 1
+            assert checkpoint.latest_step(tmp_path) == 1
 
     @pytest.mark.parametrize("flags", [
         ["--metrics-dir", "{tmp}/m"], ["--metrics-port", "0"],
