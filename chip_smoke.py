@@ -58,7 +58,15 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    report, the dp=2 sites ``shmap0/`` + the single device's, step 1's
    dp-reduced gradient against the single device's, the losses against
    the emulated run above, and the tp=5 sharded checkpoint restored on
-   one device bit-equal to the ranks' final parameters;
+   one device bit-equal to the ranks' final parameters; then serves
+   phase 6's requests on such meshes (``phase_serve_shard``) through
+   ``Engine(mesh=)`` and ``pallas_int8_6``: dp=2 paged and dense and
+   dp=1,tp=5, K1 held bitwise at every new per-rank shape first, each
+   rank's K1 launches against its ``site_exec`` and its
+   ``prefill_sites``, its cache's blocks and kv heads, the same streams
+   on every rank, equal to phase 6's up to any token whose phase-6
+   top-2 logit gap is under ``SERVE_SHARD_MARGIN`` (exactly at dp=2),
+   paged == dense, and each rank's tokens/s and peak memory printed;
 9. tunes it: calibrates the same train step through ``python -m
    repro_torch.tune``'s ``main`` (probe ``pallas_int8_6``, 2 batches),
    prints the solved split counts, holds K1 bitwise at every ((m, k,
@@ -637,10 +645,14 @@ def phase_v1_ab(errs, m=256, k=256, n=4096):
 
 def _timed_runner(runner):
     """Wrap a runner's wave and tick with CUDA events; returns the
-    record they fill (device ms, real tokens, wave shapes, ticks)."""
+    record they fill (device ms, real tokens, the shapes and the pieces'
+    slots of the waves it ran, the ticks it ran).  Under a mesh a wave
+    or tick with no row on the runner's rank runs no program and is not
+    counted, and its tokens are the rank's."""
     rec = {"prefill_ms": 0.0, "decode_ms": 0.0, "prefill_tokens": 0,
            "decode_tokens": 0, "waves": [], "ticks": 0, "wave_ms": [],
-           "wave_tokens": []}
+           "wave_tokens": [], "wave_slots": []}
+    mine = runner.kv.local_slots
     wave, tick = runner.prefill_wave, runner.decode_tick
 
     def events():
@@ -653,12 +665,13 @@ def _timed_runner(runner):
         res = wave()
         stop.record()
         stop.synchronize()
-        if res is not None:
+        if res is not None and res.rows:
             rec["prefill_ms"] += start.elapsed_time(stop)
             rec["prefill_tokens"] += res.real_tokens
             rec["waves"].append((res.rows, res.width))
             rec["wave_ms"].append(start.elapsed_time(stop))
             rec["wave_tokens"].append(res.real_tokens)
+            rec["wave_slots"].append([slot for slot, _, _ in res.pieces])
         return res
 
     def timed_tick(next_token, active, reqs):
@@ -667,9 +680,10 @@ def _timed_runner(runner):
         out = tick(next_token, active, reqs)
         stop.record()
         stop.synchronize()
-        rec["decode_ms"] += start.elapsed_time(stop)
-        rec["decode_tokens"] += int(active.sum())
-        rec["ticks"] += 1
+        if active[mine].any():
+            rec["decode_ms"] += start.elapsed_time(stop)
+            rec["decode_tokens"] += int(active[mine].sum())
+            rec["ticks"] += 1
         return out
 
     runner.prefill_wave, runner.decode_tick = timed_wave, timed_tick
@@ -693,6 +707,33 @@ def _smollm(dtype, seed, **overrides):
             model.lm_head.shape, generator=gen, device="cuda",
             dtype=model.lm_head.dtype))
     return model
+
+
+class _Gaps:
+    """For every token an engine emits, the top-2 gap of the logits row
+    it was sampled from over that row's largest |logit|: ``gaps[i][j]``
+    for the ``j``-th token of ``reqs[i]``."""
+
+    def __init__(self, eng, reqs):
+        self.gaps = [[] for _ in reqs]
+        index = {id(r): i for i, r in enumerate(reqs)}
+        last = {}
+        sample, emit = eng.runner._sample, eng._emit
+
+        def recorded_sample(logits, rows):
+            top = torch.topk(logits, 2, dim=-1).values
+            rel = ((top[:, 0] - top[:, 1])
+                   / logits.abs().amax(dim=-1)).cpu().tolist()
+            for req, gap in zip(rows, rel):
+                if req is not None:
+                    last[id(req)] = gap
+            return sample(logits, rows)
+
+        def recorded_emit(slot, req, token):
+            self.gaps[index[id(req)]].append(last[id(req)])
+            emit(slot, req, token)
+
+        eng.runner._sample, eng._emit = recorded_sample, recorded_emit
 
 
 def phase_serve(checked_kn, seed=3, n_requests=8, max_new=16, splits=6,
@@ -725,12 +766,15 @@ def phase_serve(checked_kn, seed=3, n_requests=8, max_new=16, splits=6,
                      chunk_tokens=256, chunk_token_budget=512)
     policy = PrecisionPolicy(backend="pallas_int8", default_splits=splits)
 
-    def serve(pol, layout="paged", reqs_prompts=prompts, new=max_new):
+    def serve(pol, layout="paged", reqs_prompts=prompts, new=max_new,
+              gaps=None):
         eng = Engine(model, model.params, policy=pol, kv_layout=layout,
                      **engine_kw)
         rec = _timed_runner(eng.runner)
         reqs = [Request(prompt=p, max_new_tokens=new)
                 for p in reqs_prompts]
+        if gaps is not None:
+            gaps.append(_Gaps(eng, reqs))
         eng.run(reqs)
         torch.cuda.synchronize()
         return eng, [r.out for r in reqs], rec
@@ -792,7 +836,10 @@ def phase_serve(checked_kn, seed=3, n_requests=8, max_new=16, splits=6,
     print(f"[serve] dgemm and pallas_int8_{splits} greedy streams equal for "
           f"{same} of {n_requests} requests")
 
-    _, toks_dense, _ = serve(policy, layout="dense")
+    # The dense run, whose times are not read, also records each emitted
+    # token's top-2 logit gap (the shard serve phase's margin rule).
+    gaps = []
+    _, toks_dense, _ = serve(policy, layout="dense", gaps=gaps)
     if toks_dense != toks_emul:
         fail("paged and dense greedy tokens differ under "
              f"pallas_int8_{splits}")
@@ -803,7 +850,7 @@ def phase_serve(checked_kn, seed=3, n_requests=8, max_new=16, splits=6,
     del eng
     return launches, dict(tokens=toks_emul, rec=results[
         f"pallas_int8_{splits}"], prompts=prompts, engine_kw=engine_kw,
-        splits=splits)
+        splits=splits, seed=seed, max_new=max_new, gaps=gaps[0].gaps)
 
 
 def _profile_wave(eng, policy, rows=2, width=256):
@@ -1552,6 +1599,268 @@ def phase_shard(errs, trained, **overrides):
             del state
             torch.cuda.empty_cache()
     shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    return launches, new
+
+
+# The meshes of the serve-shard phase, ranks sharing the card over gloo,
+# and the layouts each serves: dp=2 (two slot groups of 2) paged and
+# dense, tp=5 (5 heads and 1 kv head a rank) paged.
+SERVE_SHARD_MESHES = (("dp=2", 2, 1, ("paged", "dense")),
+                      ("dp=1,tp=5", 1, 5, ("paged",)))
+SERVE_SHARD_DIR = os.path.join(ROOT, "build", "serve_shard_smoke")
+SERVE_SHARD_TIMEOUT = 600
+# A mesh's stream must equal phase 6's up to the first token whose
+# top-2 logit gap in phase 6 is under this fraction of that row's
+# largest |logit|: the mesh's emulated row-parallel wo and w_down (row
+# scales over the rank's k) and its cuBLAS calls at other shapes move
+# the logits by about 1e-6 of that (PR 19's tp=5 losses moved 9e-8),
+# so a nearer tie may flip.  Beyond such a token the streams may part.
+SERVE_SHARD_MARGIN = 1e-4
+# Meshes whose streams must equal phase 6's exactly: at dp=2 every
+# offloaded GEMM is K1, bitwise and row-independent, at the single
+# device's widths.
+SERVE_SHARD_EXACT = ("dp=2",)
+# The (k, n) of a tp=5 rank's offloaded serve GEMMs: q, o, gate/up, down.
+SERVE_TP5_KN = ((960, 192), (192, 960), (960, 512), (512, 960))
+
+
+def serve_shard_gemm_shapes(cfg, served, dp, tp):
+    """(m, k, n) of every GEMM a rank of a dp x tp serving mesh offloads
+    at the default min_dim (128), from phase 6's waves: a wave's rows on
+    dp rank g are its pieces whose slot is in group g, at the wave's
+    width, and each projection and MLP GEMM has its per-shard (k, n).
+    Decode (m = the rank's slots) and the head (m = rows) stay under
+    the gate."""
+    d = cfg.d_model
+    q, kv, f = cfg.q_dim // tp, cfg.kv_dim // tp, cfg.d_ff // tp
+    kn = [(d, q), (d, kv), (q, d), (d, f), (f, d)]
+    per_group = served["engine_kw"]["batch_slots"] // dp
+    shapes = set()
+    for (_, width), slots in zip(served["rec"]["waves"],
+                                 served["rec"]["wave_slots"]):
+        for g in range(dp):
+            rows = sum(slot // per_group == g for slot in slots)
+            shapes |= {(rows * width, k, n) for k, n in kn
+                       if min(rows * width, k, n) >= 128}
+    return sorted(shapes)
+
+
+def _site_exec(run):
+    return sum(m["value"] for m in run.registry.snapshot()
+               if m["name"] == "site_exec")
+
+
+def _serve_shard_rank(spec, layouts, served, overrides):
+    """One rank of the serve-shard phase: ``Engine(mesh=)`` over phase 6's
+    model, requests and engine settings through ``pallas_int8_6`` with
+    telemetry on, once per layout: its streams, K1's launches and
+    shapes, its ``site_exec``, the launches its ``prefill_sites``
+    predict over its wave shapes (plus its decode ticks'), its cache's
+    shape, its device times and its peak memory."""
+    from collections import Counter
+
+    import torch.distributed as dist
+
+    from repro_torch.core import PrecisionPolicy, site_report
+    from repro_torch.kernels import ops
+    from repro_torch.obs import MetricsRun
+    from repro_torch.serve import Engine, Request
+    from repro_torch.shard import build_mesh
+    from repro_torch.shard.launch import rank_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank_device("cuda")
+    mesh = build_mesh(spec)
+    model = _smollm("float32", served["seed"], **overrides)
+    policy = PrecisionPolicy(backend="pallas_int8",
+                             default_splits=served["splits"])
+    prompts = served["prompts"]
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(),
+           "coords": dict(mesh.coords)}
+    for i, layout in enumerate(layouts):
+        if i == 0:
+            # Warm-up (cuBLAS handles, K1's library, the RoPE table):
+            # three requests reach both dp groups.
+            Engine(model, model.params, mesh=mesh, policy=policy,
+                   kv_layout=layout, **served["engine_kw"]).run(
+                [Request(prompt=p, max_new_tokens=2) for p in prompts[:3]])
+        metrics = MetricsRun(os.path.join(
+            SERVE_SHARD_DIR, spec.replace(",", "_"), layout,
+            f"rank{mesh.rank}"))
+        eng = Engine(model, model.params, mesh=mesh, policy=policy,
+                     kv_layout=layout, metrics=metrics,
+                     **served["engine_kw"])
+        rec = _timed_runner(eng.runner)
+        reqs = [Request(prompt=p, max_new_tokens=served["max_new"])
+                for p in prompts]
+        torch.cuda.synchronize()
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        torch.cuda.reset_peak_memory_stats()
+        with _K1Shapes() as launched:
+            t0 = time.perf_counter()
+            eng.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        site_exec = _site_exec(metrics)
+        metrics.close()
+        # In first-run order, which the tp ranks of a group share (a
+        # decision-cache hit each: no program runs).
+        shapes = Counter(rec["waves"])
+        per_shape = {shape: sum(site.mult for site in eng.prefill_sites(
+            *shape) if site.offloaded) for shape in shapes}
+        slots = len(eng.kv.local_slots)
+        decode = (eng.model.decode_step_paged if layout == "paged"
+                  else eng.model.decode_step)
+        with torch.no_grad():
+            per_tick = sum(site.mult for site in site_report(
+                decode, policy)(
+                eng.params, eng.cache,
+                torch.zeros(slots, dtype=torch.int32, device="cuda"),
+                torch.ones(slots, dtype=torch.bool, device="cuda"))
+                if site.offloaded)
+        out[layout] = dict(
+            tokens=[r.out for r in reqs], launches=launches,
+            site_exec=site_exec, shapes=sorted(launched.seen),
+            predicted=sum(per_shape[sh] * count
+                          for sh, count in shapes.items())
+            + per_tick * rec["ticks"],
+            per_shape={str(sh): n for sh, n in per_shape.items()},
+            per_tick=per_tick, k_shape=tuple(eng.cache["k"].shape),
+            local_slots=eng.kv.local_slots.tolist(), wall=wall, peak=peak,
+            **{key: rec[key] for key in ("prefill_ms", "prefill_tokens",
+                                         "decode_ms", "decode_tokens",
+                                         "waves", "ticks")})
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def _margin_rule(got, want, gaps):
+    """``(held, near)``: whether ``got`` equals ``want`` up to the first
+    token whose phase-6 gap is under ``SERVE_SHARD_MARGIN`` (``near``,
+    its index, or None when no token is that near a tie) and is as
+    long."""
+    if len(got) != len(want):
+        return False, None
+    for j, (a, b, gap) in enumerate(zip(got, want, gaps)):
+        if gap < SERVE_SHARD_MARGIN:
+            return True, j
+        if a != b:
+            return False, None
+    return True, None
+
+
+def phase_serve_shard(errs, served, held, **overrides):
+    """Sharded serving on meshes of processes sharing the card, over
+    gloo: phase 6's full-width SmolLM-360M, its 8 requests, engine
+    settings and 16 new tokens through ``Engine(mesh=)`` and
+    ``pallas_int8_6``, at dp=2 (paged and dense) and dp=1,tp=5.  Held:
+    K1 bitwise at every new per-rank shape first; per rank, K1's
+    launches == its ``site_exec`` == its ``prefill_sites``' prediction
+    over its wave shapes; the same streams on every rank; each rank's
+    cache its group's blocks (or slots) and ``5/tp`` kv heads; the
+    streams against phase 6's under ``SERVE_SHARD_MARGIN`` (exactly at
+    dp=2); paged == dense at dp=2.  ``held``: per-shard shapes an
+    earlier phase held.  Returns K1's launches over every rank and
+    the new shapes."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.shard.launch import spawn
+
+    cfg = _train_setup_cfg(overrides)
+    kn = serve_gemm_shapes(cfg)
+    known = set(held) | {(m, k, n) for m in (512, 221) for k, n in kn}
+    rank_shapes = {spec: serve_shard_gemm_shapes(cfg, served, dp, tp)
+                   for spec, dp, tp, _ in SERVE_SHARD_MESHES}
+    new = sorted({shape for shapes in rank_shapes.values()
+                  for shape in shapes} - known)
+    phase_k1_train_shapes(errs, new, s=served["splits"], tag="serve-shard")
+    shutil.rmtree(SERVE_SHARD_DIR, ignore_errors=True)
+    want, gaps = served["tokens"], served["gaps"]
+    slots = served["engine_kw"]["batch_slots"]
+    blocks = slots * served["engine_kw"]["max_len"] // served[
+        "engine_kw"]["block_size"]
+    launches = {key: 0 for key in ops.LAUNCHES}
+    # What the ranks need: a small spawn message starts them together.
+    job = {key: served[key] for key in ("prompts", "engine_kw", "seed",
+                                        "splits", "max_new")}
+    print("[serve-shard] ranks sharing one card: what the path costs, "
+          "not a gain", flush=True)
+    for spec, dp, tp, layouts in SERVE_SHARD_MESHES:
+        t0 = time.perf_counter()
+        ranks = spawn(_serve_shard_rank, dp * tp,
+                      (spec, layouts, job, overrides), device="cuda",
+                      timeout=SERVE_SHARD_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for r in ranks:
+            for layout in layouts:
+                x = r[layout]
+                pre = x["prefill_tokens"] / max(x["prefill_ms"], 1e-9) * 1e3
+                dec = x["decode_tokens"] / max(x["decode_ms"], 1e-9) * 1e3
+                print(f"[serve-shard] {spec} {layout} rank {r['rank']} "
+                      f"{r['coords']}: backend {r['backend']}, slots "
+                      f"{x['local_slots']}, cache k {x['k_shape']}; prefill "
+                      f"{x['prefill_tokens']} tokens in {len(x['waves'])} "
+                      f"waves {x['waves']}, {x['prefill_ms']:.1f} ms "
+                      f"({pre:.1f} tok/s); decode {x['decode_tokens']} "
+                      f"tokens in {x['ticks']} ticks, {x['decode_ms']:.1f} "
+                      f"ms ({dec:.1f} tok/s); wall {x['wall']:.2f} s; peak "
+                      f"memory {x['peak']:.2f} GiB; K1 launches "
+                      f"{x['launches']['split_gemm']} (site_exec "
+                      f"{x['site_exec']}, predicted {x['predicted']}: per "
+                      f"wave shape {x['per_shape']}, {x['per_tick']} per "
+                      f"tick)", flush=True)
+                for key, val in x["launches"].items():
+                    launches[key] += val
+                if not (x["launches"]["split_gemm"] == x["site_exec"]
+                        == x["predicted"] > 0) or any(
+                            val for key, val in x["launches"].items()
+                            if key != "split_gemm"):
+                    fail(f"serve-shard {spec} {layout} rank {r['rank']}: "
+                         f"launches {x['launches']} != site_exec "
+                         f"{x['site_exec']} or the prediction "
+                         f"{x['predicted']}")
+                if not set(x["shapes"]) <= set(rank_shapes[spec]):
+                    fail(f"serve-shard {spec}: K1 launched at "
+                         f"{sorted(set(x['shapes']) - set(rank_shapes[spec]))}"
+                         f", shapes not predicted from phase 6's waves")
+                rows = (blocks // dp + 1 if layout == "paged"
+                        else slots // dp)
+                if x["k_shape"][1:3] != (rows, cfg.num_kv_heads // tp):
+                    fail(f"serve-shard {spec} {layout} rank {r['rank']}: "
+                         f"cache k {x['k_shape']}, not {rows} "
+                         f"{'blocks' if layout == 'paged' else 'slots'} "
+                         f"and {cfg.num_kv_heads // tp} kv heads")
+                if x["tokens"] != ranks[0][layouts[0]]["tokens"]:
+                    fail(f"serve-shard {spec} {layout}: rank {r['rank']}'s "
+                         "streams differ from rank 0's")
+        got = ranks[0][layouts[0]]["tokens"]
+        ruled = [_margin_rule(g, w, gp) for g, w, gp in zip(got, want, gaps)]
+        near = [j for _, j in ruled if j is not None]
+        exact = sum(g == w for g, w in zip(got, want))
+        print(f"[serve-shard] {spec}: {exact} of {len(want)} streams equal "
+              f"phase 6's; {len(near)} reached a token whose phase-6 top-2 "
+              f"gap is under {SERVE_SHARD_MARGIN} of its largest |logit| "
+              f"(at tokens {near}); smallest gap "
+              f"{min(min(gp) for gp in gaps):.3e}; {dp * tp} ranks in "
+              f"{wall:.1f} s", flush=True)
+        if not all(ok for ok, _ in ruled):
+            fail(f"serve-shard {spec}: streams {got} part from phase 6's "
+                 f"{want} before any near tie")
+        if spec in SERVE_SHARD_EXACT and got != want:
+            fail(f"serve-shard {spec}: streams differ from phase 6's")
+        if "dense" in layouts:
+            for r in ranks:
+                if r["dense"]["tokens"] != r["paged"]["tokens"]:
+                    fail(f"serve-shard {spec}: paged and dense streams "
+                         f"differ on rank {r['rank']}")
+            print(f"[serve-shard] {spec}: paged == dense on every rank")
+    shutil.rmtree(SERVE_SHARD_DIR, ignore_errors=True)
     return launches, new
 
 
@@ -2863,6 +3172,9 @@ def main():
     torch.cuda.empty_cache()
     shard_launches, shard_shapes = phase_shard(errs, trained)
     torch.cuda.empty_cache()
+    serve_shard_launches, serve_shard_shapes = phase_serve_shard(
+        errs, served, shard_shapes)
+    torch.cuda.empty_cache()
     tune_launches, tune_pairs = phase_tune(errs, trained)
     torch.cuda.empty_cache()
     obs_launches = phase_obs(served, trained)
@@ -2872,16 +3184,18 @@ def main():
     cf_launches = phase_control_flow()
     torch.cuda.empty_cache()
     # Launch counts per kernel: the main paths' runs (MuST, serve, train,
-    # the mesh's ranks, the tune phase's plan-driven train and serve, both
-    # again with telemetry on, the warm-started serve and the
-    # control-flow program) and K3's A/B path, each read with the
-    # counters zeroed before it.
+    # the train and serve meshes' ranks, the tune phase's plan-driven
+    # train and serve, both again with telemetry on, the warm-started
+    # serve and the control-flow program) and K3's A/B path, each read
+    # with the counters zeroed before it.
     total = {key: launches[key] + serve_launches[key] + v1_launches[key]
              + train_launches[key] + shard_launches[key]
-             + tune_launches[key] + obs_launches[key]
-             + warm_launches[key] + cf_launches[key] for key in launches}
+             + serve_shard_launches[key] + tune_launches[key]
+             + obs_launches[key] + warm_launches[key] + cf_launches[key]
+             for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
-          f"train {train_launches}, shard ranks {shard_launches}, tune "
+          f"train {train_launches}, shard ranks {shard_launches}, "
+          f"serve-shard ranks {serve_shard_launches}, tune "
           f"{tune_launches}, obs "
           f"{obs_launches}, warm start {warm_launches}, control flow "
           f"{cf_launches}, v1 A/B {v1_launches}")
@@ -2889,6 +3203,10 @@ def main():
     shapes += [pair for pair in tune_pairs if pair not in shapes][:3]
     shapes += [(shape, TRAIN_SPLITS) for shape in shard_shapes
                if (shape, TRAIN_SPLITS) not in shapes]
+    # The serve tp=5 ranks' per-shard GEMMs at the 3-row waves' m (768).
+    shapes += [(shape, TRAIN_SPLITS) for shape in serve_shard_shapes
+               if shape[0] == 768 and shape[1:] in SERVE_TP5_KN
+               and (shape, TRAIN_SPLITS) not in shapes]
     rows = (phase_k1_timings(errs, total, shapes)
             + phase_timings(errs, total))
     print(json.dumps({"kernels": rows}))

@@ -60,8 +60,9 @@ all-reduce of the gradient backward), and the outputs of ``wo`` and
 ``w_down`` pass :class:`_TPExit` (all-reduce forward, identity
 backward), the reference's ``_tp_enter``/``_tp_exit``.  The head counts
 come from the local shapes, so the same code runs the full model and
-any shard width.  The two are user ``autograd.Function`` classes,
-which the offload leaves opaque.
+any shard width, and the KV caches hold the rank's
+``num_kv_heads / tp`` heads (:attr:`Model.kv_heads`).  The two are user
+``autograd.Function`` classes, which the offload leaves opaque.
 """
 
 from __future__ import annotations
@@ -455,10 +456,18 @@ class Model(nn.Module):
 
     # -- KV-cache programs (serving) ---------------------------------
 
+    @property
+    def kv_heads(self) -> int:
+        """The kv heads this model's programs compute: all of them, or
+        this rank's ``num_kv_heads / tp`` under a tp group."""
+        tp = 1 if self.tp is None else dist.get_world_size(self.tp)
+        return self.cfg.num_kv_heads // tp
+
     def init_cache(self, batch: int, max_len: int) -> dict:
-        """Empty cache: stacked K/V buffers + per-slot lengths."""
+        """Empty cache: stacked K/V buffers (this rank's kv heads under
+        a tp group) + per-slot lengths."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len,
+        shape = (cfg.num_layers, batch, self.kv_heads, max_len,
                  cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype,
                                  device=self.device),
@@ -549,9 +558,10 @@ class Model(nn.Module):
     # -- paged KV-cache programs (serving) ---------------------------
 
     def init_paged_cache(self, num_blocks: int, block_size: int) -> dict:
-        """Empty K/V block pools for the paged cache layout."""
+        """Empty K/V block pools for the paged cache layout (this
+        rank's kv heads under a tp group)."""
         cfg = self.cfg
-        shape = (cfg.num_layers, num_blocks, cfg.num_kv_heads,
+        shape = (cfg.num_layers, num_blocks, self.kv_heads,
                  block_size, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=self.dtype,
                                  device=self.device),

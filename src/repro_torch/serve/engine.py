@@ -43,9 +43,25 @@ programs' offload decision caches there, so a restarted engine reads
 its site decisions from disk and checks them byte for byte (see
 :mod:`repro_torch.serve.runner`).
 
-Not ported: ``mesh`` (sharded serving, ROADMAP item 13: slot groups per
-dp rank, request routing and a KV cache split over tp) raises
-``NotImplementedError``.
+Sharded serving: inside each rank of a mesh of processes (started by
+:func:`repro_torch.shard.launch.spawn` or ``torchrun``), pass the
+rank's :class:`repro_torch.shard.Mesh` as ``mesh=`` (``build_mesh(
+"dp=2")``, ``build_mesh("dp=2,tp=2")``) and the same model, parameters
+and requests on every rank.  The dp axis (the first that is not
+``tp``) splits the slots into contiguous groups, one per dp
+coordinate, and ``batch_slots`` must divide by its extent; the ``tp``
+axis runs the LM's tensor parallelism (:meth:`Model.tp_view`, the
+parameters cut per :func:`repro_torch.shard.lm_param_specs`) and
+splits the kv heads.  Control is replicated: every rank runs the same
+scheduler, packing and block manager over every slot, while its device
+holds and computes only its group's slots (requests take the lowest
+free slot, as in the reference: nothing balances the groups) and its
+kv heads; the sampled tokens are exchanged over dp, so every rank's
+``run`` returns every request's tokens.  Rank 0's enqueue stamp is
+every rank's, so EDF order and the SLO readings agree.  ``metrics=``
+and ``metrics_port=`` are per rank (give each rank its own
+:class:`~repro_torch.obs.MetricsRun`); ``warm_cache_dir`` is ignored.
+See :mod:`repro_torch.serve.runner` for what the sites record.
 """
 
 from __future__ import annotations
@@ -58,8 +74,9 @@ import numpy as np
 from ..core import PrecisionPolicy
 from ..models import Model
 from ..obs import MetricsServer, SLOTracker, get_logger
+from ..shard import broadcast_scalar, serve_dp_axis, serve_mesh_setup
 from .kvcache import DenseKVCache, PagedKVCache
-from .runner import Runner, _not_ported
+from .runner import Runner
 from .scheduler import Request, SamplingParamError, Scheduler
 
 __all__ = ["Engine", "Request", "SamplingParamError"]
@@ -78,6 +95,9 @@ class Engine:
         or :func:`~repro_torch.models.params_from_reference`).
       batch_slots: decode batch width = number of concurrent requests.
       max_len: KV-cache capacity per slot.
+      mesh: optional :class:`repro_torch.shard.Mesh`, this rank's view
+        of a mesh of processes (module docstring); ``batch_slots`` must
+        divide by its dp extent.
       plan: optional :class:`~repro_torch.tune.PrecisionPlan`; the
         programs run under ``offload`` with the plan's policy, in
         subset mode (``on_unmatched_site="ignore"``).
@@ -120,17 +140,26 @@ class Engine:
                  slo_objective: float = 0.99,
                  slo_window_s: float = 60.0,
                  device=None):
-        _not_ported(mesh=mesh)
         if kv_layout not in ("paged", "dense"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; "
                              "have ('paged', 'dense')")
         if device is not None and str(device) != str(model.device):
             raise ValueError(f"device={device} but the model lives on "
                              f"{model.device}")
-        self.model = model
         self.metrics = metrics
         self.batch_slots = int(batch_slots)
         self.max_len = int(max_len)
+        self.mesh = mesh
+        dp, group = 1, None
+        if mesh is not None:
+            dp_axis, dp = serve_dp_axis(mesh)
+            if self.batch_slots % dp:
+                raise ValueError(
+                    f"batch_slots={self.batch_slots} is not divisible "
+                    f"by the data-parallel extent {dp_axis}={dp}")
+            group = 0 if dp_axis is None else mesh.coords[dp_axis]
+            model, params = serve_mesh_setup(mesh, model, params)
+        self.model = model
         self.params = params
         if policy is None and plan is not None:
             # Subset mode: the plan's backward-pass and other unmatched
@@ -143,14 +172,16 @@ class Engine:
         if kv_layout == "paged":
             self.kv = PagedKVCache(model, self.batch_slots, self.max_len,
                                    block_size=block_size,
-                                   num_blocks=num_blocks,
-                                   registry=registry)
+                                   num_blocks=num_blocks, dp_groups=dp,
+                                   group=group, registry=registry)
         else:
             self.kv = DenseKVCache(model, self.batch_slots, self.max_len,
+                                   dp_groups=dp, group=group,
                                    registry=registry)
         self.runner = Runner(
-            model, params, self.kv, max_len=self.max_len, policy=policy,
-            plan=plan, metrics=metrics, chunk_tokens=chunk_tokens,
+            model, params, self.kv, max_len=self.max_len, mesh=mesh,
+            policy=policy, plan=plan, metrics=metrics,
+            chunk_tokens=chunk_tokens,
             chunk_token_budget=chunk_token_budget,
             warm_cache_dir=warm_cache_dir)
         self.slo = None
@@ -184,7 +215,9 @@ class Engine:
 
     def prefill_sites(self, rows: int, width: int):
         """Site decisions of the prefill program for a wave of shape
-        ``(rows, width)``; empty without a policy."""
+        ``(rows, width)``; empty without a policy.  Under a mesh: of the
+        program this rank runs for ``rows`` rows of its own (every rank
+        of a tp group must ask alike, :meth:`Runner.sites_for`)."""
         return self.runner.sites_for(rows, width)
 
     # -- lifecycle ---------------------------------------------------
@@ -313,9 +346,13 @@ class Engine:
 
         Requests are validated up front (:class:`SamplingParamError`,
         a ``ValueError``); more requests than slots queue and are
-        admitted as earlier ones finish.
+        admitted as earlier ones finish.  Under a mesh every rank must
+        call it with the same requests.
         """
-        self.scheduler.submit(requests)
+        now = time.perf_counter()
+        if self.mesh is not None:
+            now = broadcast_scalar(now, self.mesh)
+        self.scheduler.submit(requests, now=now)
         if self.metrics is not None:
             for req in requests:
                 self._rstats[id(req)] = {

@@ -32,6 +32,16 @@ grow to its reserved size.
 The port's copy of :mod:`repro.serve.kvcache`: the pools, the block
 table and the lengths are tensors on the model's device, the host
 mirror of the table is numpy as in the reference.
+
+Under a mesh of processes (``group=``, one dp rank's view) the host
+manager stays global and identical on every rank: admission,
+reservation, the block table and :meth:`~PagedKVCache.stats` see every
+slot, so the gauges are the reference's.  The device side is the
+rank's alone: the group's slots (their lengths, their rows of the
+dense rectangle) and the group's range of pool rows, its trash block
+first, addressed by local ids (global id minus the range's base), with
+the model's kv heads (this rank's ``num_kv_heads / tp`` under a tp
+view).
 """
 
 from __future__ import annotations
@@ -49,6 +59,21 @@ __all__ = ["PagedKVCache", "DenseKVCache"]
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _group_slots(batch_slots: int, dp_groups: int,
+                 group: Optional[int]) -> np.ndarray:
+    """The global slots whose device state this process holds: all of
+    them, or dp group ``group``'s contiguous range."""
+    if batch_slots % dp_groups:
+        raise ValueError(f"batch_slots={batch_slots} not divisible "
+                         f"by dp_groups={dp_groups}")
+    if group is None:
+        return np.arange(batch_slots)
+    if not 0 <= group < dp_groups:
+        raise ValueError(f"group={group} outside 0..{dp_groups - 1}")
+    per = batch_slots // dp_groups
+    return np.arange(group * per, (group + 1) * per)
 
 
 class PagedKVCache:
@@ -69,6 +94,8 @@ class PagedKVCache:
       dp_groups: data-parallel extent — slots and pool rows are split
         into this many contiguous groups so the device arrays shard
         evenly over the mesh dp axis.
+      group: the dp group whose device pools this process holds (a
+        mesh rank's); ``None``, every group's (one device).
       registry: optional metrics registry for the block
         gauges (``serve_kv_blocks_allocated`` / ``_hwm`` /
         ``serve_kv_block_utilization``).
@@ -77,15 +104,13 @@ class PagedKVCache:
     def __init__(self, model: Model, batch_slots: int, max_len: int,
                  block_size: int = 16,
                  num_blocks: Optional[int] = None, dp_groups: int = 1,
-                 registry=None):
+                 group: Optional[int] = None, registry=None):
         if max_len % block_size:
             raise ValueError(
                 f"max_len={max_len} must be a multiple of block_size="
                 f"{block_size} (equal attention extents are what make "
                 "the paged cache bit-identical to the dense one)")
-        if batch_slots % dp_groups:
-            raise ValueError(f"batch_slots={batch_slots} not divisible "
-                             f"by dp_groups={dp_groups}")
+        self.local_slots = _group_slots(batch_slots, dp_groups, group)
         self.block_size = int(block_size)
         self.blocks_per_slot = max_len // block_size
         self.batch_slots = int(batch_slots)
@@ -120,8 +145,11 @@ class PagedKVCache:
             self._table[slot, :] = self._trash[self.group_of(slot)]
         self._table_dirty = True
         self.device = model.device
-        self.pools = model.init_paged_cache(self.num_blocks_total,
-                                            self.block_size)
+        # Local pool row 0 is global row ``_base``: the group's trash.
+        self._base = 0 if group is None else group * (self._per_group + 1)
+        self.pools = model.init_paged_cache(
+            self.num_blocks_total if group is None
+            else self._per_group + 1, self.block_size)
         self._gauges()
 
     # -- geometry ----------------------------------------------------
@@ -144,15 +172,21 @@ class PagedKVCache:
     # -- cache assembly ----------------------------------------------
 
     def init_cache(self) -> dict:
-        """The full device cache dict the paged programs consume."""
+        """The device cache dict the paged programs consume (the local
+        slots' rows)."""
         return {"k": self.pools["k"], "v": self.pools["v"],
                 "block_table": self._device_table(),
-                "length": torch.zeros((self.batch_slots,),
+                "length": torch.zeros((len(self.local_slots),),
                                       dtype=torch.int32,
                                       device=self.device)}
 
+    def table_rows(self, slots) -> np.ndarray:
+        """The host table's rows of ``slots`` in local pool ids."""
+        return self._table[np.asarray(slots)] - self._base
+
     def _device_table(self) -> torch.Tensor:
-        return torch.as_tensor(self._table.copy(), device=self.device)
+        return torch.as_tensor(self.table_rows(self.local_slots),
+                               device=self.device)
 
     def sync_table(self, cache: dict) -> dict:
         """Push the host block table to the device if it changed."""
@@ -240,11 +274,14 @@ class DenseKVCache:
     nothing to allocate or release, so reservation always succeeds and
     the "allocated" accounting equals the dense equivalent by
     definition.  Kept (and asserted bit-identical to paged) as the
-    reference layout.
+    reference layout.  ``dp_groups``/``group`` as for
+    :class:`PagedKVCache`: a mesh rank holds its group's rectangles.
     """
 
     def __init__(self, model: Model, batch_slots: int, max_len: int,
+                 dp_groups: int = 1, group: Optional[int] = None,
                  registry=None):
+        self.local_slots = _group_slots(batch_slots, dp_groups, group)
         self.model = model
         self.batch_slots = int(batch_slots)
         self.max_len = int(max_len)
@@ -252,7 +289,7 @@ class DenseKVCache:
         self._registry = registry
 
     def init_cache(self) -> dict:
-        return self.model.init_cache(self.batch_slots, self.max_len)
+        return self.model.init_cache(len(self.local_slots), self.max_len)
 
     def sync_table(self, cache: dict) -> dict:
         return cache

@@ -39,10 +39,32 @@ exported program to restore, so nothing else is skipped.  The
 reference replaces the live hook by static ``site_exec`` accounting on
 a warm run, because its exported programs cannot carry a callback; the
 port's eager calls can, so the hook stays live.  The directory is
-ignored without a policy.
+ignored without a policy, and under a mesh, as in the reference.
 
-Not ported: meshes (sharded serving, ROADMAP item 13); passing one
-raises ``NotImplementedError``.
+Meshes (``mesh=``, a :class:`repro_torch.shard.Mesh` of processes, one
+runner per rank, built by :class:`repro_torch.serve.Engine`): SPMD with
+replicated control.  Every rank packs the same waves from the same
+pending prompts (:meth:`Runner._pack` and the wave width are global,
+the reference's packing) and keeps the same host mirror of the slot
+lengths; its device state is its dp group's slots alone
+(``kv.local_slots``), with its tp shard of the kv heads.  A wave runs on
+a rank as the pieces whose slot is in its group, in wave order, at the
+global width, with the slots' local indices; a decode tick over the
+group's slots.  A rank with no such rows runs no program.  Each rank
+samples its own rows, and the tokens are then exchanged over the dp
+axis (:func:`repro_torch.shard.exchange_owned`), which every dp rank
+joins at every wave and every tick, so every rank's engine sees every
+token.  The tp ranks of a group run the same shapes in the same order,
+so the LM's tp all-reduces meet.
+
+Under a mesh the size gate and the tile pick read the shapes the rank
+runs: its rows and its tp shard's extents (the reference's GSPMD
+program decides on the global shapes).  The sites keep the single
+device's names (no ``shmap0/``, as the reference's GSPMD serve program
+has no ``shard_map``), so a single-device plan matches by name, and
+record no mesh axes (``Site.spmd`` empty): each rank's sites, its
+``site_exec`` counts and :meth:`Runner.sites_for` describe the program
+that rank runs.
 """
 
 from __future__ import annotations
@@ -58,6 +80,7 @@ import torch
 from ..core import offload
 from ..models import Model
 from ..obs import get_logger
+from ..shard import exchange_owned, serve_dp_axis
 
 __all__ = ["Runner", "WaveResult"]
 
@@ -85,23 +108,11 @@ class WaveResult:
 
     pieces: list          # (slot, req, take) in wave-row order
     completed: list       # (slot, req, sampled first token)
-    rows: int             # device rows
+    rows: int             # device rows (this rank's under a mesh)
     width: int            # wave width (largest piece)
     padded_tokens: int    # rows * width actually computed
-    real_tokens: int      # sum of piece lengths
+    real_tokens: int      # sum of the rows' piece lengths
     duration_s: float
-
-
-#: The ROADMAP item that ports each refused option.
-_ROADMAP_ITEM = {"mesh": 13}
-
-
-def _not_ported(**options) -> None:
-    given = sorted(name for name, val in options.items() if val is not None)
-    if given:
-        raise NotImplementedError(
-            "; ".join(f"{name}: not ported to repro_torch yet (ROADMAP "
-                      f"item {_ROADMAP_ITEM[name]})" for name in given))
 
 
 class Runner:
@@ -111,8 +122,9 @@ class Runner:
                  policy=None, chunk_tokens: Optional[int] = None,
                  chunk_token_budget: Optional[int] = None, mesh=None,
                  plan=None, metrics=None, warm_cache_dir=None):
-        _not_ported(mesh=mesh)
         self.model = model
+        self.mesh = mesh
+        self._dp_axis = None if mesh is None else serve_dp_axis(mesh)[0]
         self.metrics = metrics
         self._declared = False
         self.plan = plan
@@ -126,12 +138,22 @@ class Runner:
         self.chunk_token_budget = (int(chunk_token_budget)
                                    if chunk_token_budget else None)
         self.batch_slots = kv.batch_slots
+        # This rank's slots (all of them off a mesh): global -> local,
+        # and as a mask over the global slots.
+        self._slots = kv.local_slots
+        self._local = {int(s): i for i, s in enumerate(self._slots)}
+        self._owned = np.zeros(self.batch_slots, bool)
+        self._owned[self._slots] = True
         self.device = model.device
         self._persist_dir = None
         if warm_cache_dir is not None:
             if policy is None:
                 log.debug("warm_cache_dir ignored: no policy/plan, so "
                           "there is no decision cache to persist")
+            elif mesh is not None:
+                log.debug("warm_cache_dir ignored under a mesh: "
+                          "exported programs would bake in this "
+                          "process's device topology")
             else:
                 self._persist_dir = warm_cache_dir
 
@@ -204,7 +226,13 @@ class Runner:
         shape (an eager program has no abstract trace), which fills the
         entry a wave of that shape then hits.  The programs write the
         cache in place, so the paged run writes only to the trash block
-        (piece length 0) and the dense run to a copy of slot 0.
+        (piece length 0) and the dense run to a copy of the first slot.
+
+        Under a mesh ``rows`` are this rank's and the decisions are those
+        of the program this rank runs, at its tp shard's extents (the
+        reference reports the global program).  Under tp the miss's
+        native run meets the tp group's all-reduces, so every rank of
+        the group must ask for the same shapes in the same order.
         """
         if self._prefill_wrapped is None:
             return []
@@ -212,7 +240,7 @@ class Runner:
         start = self._tensor(np.zeros((rows,), np.int32))
         if self.layout == "paged":
             table = self._tensor(np.tile(
-                self.kv._table[:1], (rows, 1)))
+                self.kv.table_rows(self._slots[:1]), (rows, 1)))
             args = (self.params, self.cache["k"], self.cache["v"], table,
                     tokens, start, start)
         else:
@@ -284,73 +312,90 @@ class Runner:
             budget -= take
         return pieces
 
+    def _exchange(self, values: np.ndarray, owned: np.ndarray) -> np.ndarray:
+        """Off a mesh ``values``; under one, every dp rank's owned
+        entries (every dp rank calls this at every wave and tick)."""
+        if self.mesh is None:
+            return values
+        return exchange_owned(values, owned, self.mesh, self._dp_axis)
+
     def prefill_wave(self) -> Optional[WaveResult]:
-        """Run one packed prefill wave; returns None when idle."""
+        """Run one packed prefill wave; returns None when idle.  Under
+        a mesh this rank runs the wave's pieces of its slots."""
         if not self._pending:
             return None
         pieces = self._pack()
         width = max(take for _, _, take in pieces)
-        rows = n = len(pieces)
+        n = len(pieces)
+        owned = np.array([slot in self._local for slot, _, _ in pieces])
+        mine = [pieces[i] for i in np.flatnonzero(owned)]
+        rows = len(mine)
         # Before the clock starts: the wave's duration is the wave's.
-        self._declare_once(rows, width)
+        if rows:
+            self._declare_once(rows, width)
         t0 = time.perf_counter()
+        # The host manager is global: every rank maps every piece.
+        for slot, st, take in pieces:
+            self.kv.ensure(slot, st.pos + take)
         tokens = np.zeros((rows, width), np.int32)
         start = np.zeros((rows,), np.int32)
         piece = np.ones((rows,), np.int32)
-        for i, (slot, st, take) in enumerate(pieces):
+        for i, (slot, st, take) in enumerate(mine):
             tokens[i, :take] = st.tokens[st.pos:st.pos + take]
             start[i] = st.pos
             piece[i] = take
+        local = np.array([self._local[s] for s, _, _ in mine], np.int64)
         with self._span("prefill", rows=rows, padded_len=width, chunks=n):
-            with torch.no_grad():
-                if self.layout == "paged":
-                    logits = self._wave_paged(pieces, tokens, start, piece,
-                                              rows)
-                else:
-                    logits = self._wave_dense(pieces, tokens, start, piece)
-            # Scatter the new per-slot lengths (host-known): decoding
-            # neighbours keep theirs, wave slots move to their chunk end
-            # — which also parks the dense layout's masked decode writes
-            # at a position the next chunk overwrites first.
-            ends = np.array([st.pos + take for _, st, take in pieces],
-                            np.int32)
-            slots = self._tensor(np.array([s for s, _, _ in pieces]))
-            length = self.cache["length"].clone()
-            length[slots.to(torch.long)] = self._tensor(ends)
-            self.cache = dict(self.cache, length=length)
-            completed = []
-            done_rows = []
-            reqs_rows = [None] * n
+            if rows:
+                with torch.no_grad():
+                    if self.layout == "paged":
+                        logits = self._wave_paged(mine, tokens, start,
+                                                  piece)
+                    else:
+                        logits = self._wave_dense(local, tokens, start,
+                                                  piece)
+                # Scatter the new per-slot lengths (host-known):
+                # decoding neighbours keep theirs, wave slots move to
+                # their chunk end — which also parks the dense layout's
+                # masked decode writes at a position the next chunk
+                # overwrites first.
+                ends = np.array([st.pos + take for _, st, take in mine],
+                                np.int32)
+                length = self.cache["length"].clone()
+                length[self._tensor(local)] = self._tensor(ends)
+                self.cache = dict(self.cache, length=length)
+            done = np.zeros(n, bool)
             for i, (slot, st, take) in enumerate(pieces):
                 self._len[slot] = st.pos + take
                 st.pos += take
                 if st.remaining == 0:
                     del self._pending[slot]
-                    done_rows.append(i)
-                    reqs_rows[i] = st.req
-            # _sample reads the tokens back to the host, which waits for
-            # the device: the span (and prefill_s) covers the wave.
-            toks = self._sample(logits[:n], reqs_rows)
-            for i in done_rows:
-                slot, st, _ = pieces[i]
-                completed.append((slot, st.req, int(toks[i])))
+                    done[i] = True
+            toks = np.zeros(n, np.int32)
+            if rows:
+                # _sample reads the tokens back to the host, which waits
+                # for the device: the span (and prefill_s) covers the
+                # wave.
+                toks[owned] = self._sample(logits, [
+                    pieces[i][1].req if done[i] else None
+                    for i in np.flatnonzero(owned)])
+            toks = self._exchange(toks, owned)
+            completed = [(slot, st.req, int(toks[i]))
+                         for i, (slot, st, _) in enumerate(pieces)
+                         if done[i]]
+        real = int(sum(t for _, _, t in mine))
         self.waves_total += 1
         self.padded_tokens_total += rows * width
-        self.real_tokens_total += int(sum(t for _, _, t in pieces))
+        self.real_tokens_total += real
         return WaveResult(
             pieces=[(s, st.req, t) for s, st, t in pieces],
             completed=completed, rows=rows, width=width,
-            padded_tokens=rows * width,
-            real_tokens=int(sum(t for _, _, t in pieces)),
+            padded_tokens=rows * width, real_tokens=real,
             duration_s=time.perf_counter() - t0)
 
-    def _wave_paged(self, pieces, tokens, start, piece, rows):
-        for slot, st, take in pieces:
-            self.kv.ensure(slot, st.pos + take)
+    def _wave_paged(self, mine, tokens, start, piece):
         self.cache = self.kv.sync_table(self.cache)
-        table = np.empty((rows, self.kv.blocks_per_slot + 1), np.int32)
-        for i, (slot, _, _) in enumerate(pieces):
-            table[i] = self.kv._table[slot]
+        table = self.kv.table_rows([slot for slot, _, _ in mine])
         # The program writes the pools in place.
         _, _, logits = self._prefill_call(
             self.params, self.cache["k"], self.cache["v"],
@@ -358,9 +403,8 @@ class Runner:
             self._tensor(start), self._tensor(piece))
         return logits
 
-    def _wave_dense(self, pieces, tokens, start, piece):
-        idx = self._tensor(np.array([s for s, _, _ in pieces])).to(
-            torch.long)
+    def _wave_dense(self, local, tokens, start, piece):
+        idx = self._tensor(local)
         # The program writes the gathered rows (a copy) in place; they
         # are scattered back into the cache's own buffers.
         k_new, v_new, logits = self._prefill_call(
@@ -374,18 +418,24 @@ class Runner:
 
     def decode_tick(self, next_token: np.ndarray, active: np.ndarray,
                     reqs: List) -> np.ndarray:
-        """One masked decode step across all slots; returns sampled
-        tokens for the active ones (others carry garbage)."""
+        """One masked decode step across all slots (under a mesh, this
+        rank's, when one of them is active); returns sampled tokens for
+        the active ones (others carry garbage)."""
         if self.layout == "paged":
             for slot in np.flatnonzero(active):
                 self.kv.ensure(int(slot), int(self._len[slot]) + 1)
-            self.cache = self.kv.sync_table(self.cache)
-        with self._span("decode_tick", active=int(active.sum())):
-            with torch.no_grad():
-                self.cache, logits = self._decode_call(
-                    self.params, self.cache, self._tensor(next_token),
-                    self._tensor(active))
-            # Reads the tokens back: the span covers the device step.
-            toks = self._sample(logits, reqs)
+        mine = self._slots
+        with self._span("decode_tick", active=int(active[mine].sum())):
+            toks = np.zeros(self.batch_slots, np.int32)
+            if active[mine].any():
+                self.cache = self.kv.sync_table(self.cache)
+                with torch.no_grad():
+                    self.cache, logits = self._decode_call(
+                        self.params, self.cache,
+                        self._tensor(next_token[mine]),
+                        self._tensor(active[mine]))
+                # Reads the tokens back: the span covers the device step.
+                toks[mine] = self._sample(logits, [reqs[s] for s in mine])
+            toks = self._exchange(toks, self._owned)
         self._len[active] += 1
         return toks

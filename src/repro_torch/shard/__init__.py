@@ -25,15 +25,21 @@ Helpers:
 * :mod:`repro_torch.shard.collectives` — the bucketed and ring
   gradient all-reduce of the sharded train step;
 * :func:`replicate` (a broadcast from rank 0) and :func:`shard_batch`
-  (this rank's rows).
+  (this rank's rows);
+* the serve side (:class:`repro_torch.serve.Engine` given ``mesh=``):
+  :func:`serve_dp_axis` (the slot axis), :func:`serve_mesh_setup` (the
+  model's tp view and this rank's parameters), :func:`exchange_owned`
+  (the sampled tokens over dp) and :func:`broadcast_scalar` (rank 0's
+  enqueue stamp).
 """
 
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -48,6 +54,8 @@ from .rules import (DP_AXIS, TP_AXIS, TRAIN_AXES, PartitionSpec, assemble,
 __all__ = [
     "Mesh", "parse_mesh_spec", "build_mesh", "data_parallel_sharding",
     "data_parallel_setup", "train_mesh_setup", "replicate", "shard_batch",
+    "serve_dp_axis", "serve_mesh_setup", "exchange_owned",
+    "broadcast_scalar",
     # repro_torch.shard.rules
     "DP_AXIS", "TP_AXIS", "TRAIN_AXES", "PartitionSpec", "validate_tp",
     "lm_param_specs", "train_state_specs", "specs_to_rules",
@@ -105,9 +113,7 @@ class Mesh:
         reduces CUDA tensors only)."""
         if self.group is None:
             return x
-        y = x
-        if not x.is_cuda and dist.get_backend(self.group) == "nccl":
-            y = x.to(torch.device("cuda", torch.cuda.current_device()))
+        y = _for_backend(x, self.group)
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
         if y is not x:
             x.copy_(y)
@@ -116,6 +122,14 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh({self.describe()}, rank={self.rank}, "
                 f"coords={self.coords})")
+
+
+def _for_backend(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, or its copy on this rank's card when ``group`` is NCCL's
+    and ``x`` is a host tensor (NCCL reduces CUDA tensors only)."""
+    if not x.is_cuda and dist.get_backend(group) == "nccl":
+        return x.to(torch.device("cuda", torch.cuda.current_device()))
+    return x
 
 
 def parse_mesh_spec(spec: str) -> Dict[str, int]:
@@ -336,3 +350,63 @@ def shard_batch(batch, mesh: Mesh, axis: str | None = None):
     rows = lead // size
     at = mesh.coords[axis] * rows
     return tree_unflatten(batch, [x[at:at + rows] for x in leaves])
+
+
+# -- the serve side ---------------------------------------------------
+
+
+def serve_dp_axis(mesh: Mesh) -> Tuple[Optional[str], int]:
+    """The axis a serve engine splits its slots over and its size: the
+    mesh's first axis that is not ``tp``, as in the reference; ``(None,
+    1)`` for a mesh of ``tp`` alone."""
+    axis = next((a for a in mesh.axis_names if a != TP_AXIS), None)
+    return axis, (1 if axis is None else mesh.shape[axis])
+
+
+def serve_mesh_setup(mesh: Mesh, model, params):
+    """``(model, params)`` as this rank serves them.
+
+    With ``tp > 1``: :func:`validate_tp`, the model's tp view over the
+    mesh's ``tp`` group and this rank's blocks of ``params`` (the global
+    parameters every rank holds alike) per :func:`lm_param_specs`, the
+    reference's ``device_put`` per the axis rules.  Otherwise the model
+    as it is and ``params`` as rank 0 holds them (:func:`replicate`).
+    """
+    tp = mesh.shape.get(TP_AXIS, 1)
+    if tp > 1:
+        validate_tp(model.cfg, tp)
+        return (model.tp_view(mesh.groups[TP_AXIS]),
+                shard_state(params, lm_param_specs(model.cfg), mesh))
+    return model, replicate(params, mesh)
+
+
+def exchange_owned(values: np.ndarray, owned: np.ndarray, mesh: Mesh,
+                   axis: Optional[str]) -> np.ndarray:
+    """Every rank's ``owned`` entries of the non-negative integer vector
+    ``values``, on every rank of ``axis``'s group.
+
+    Each rank contributes the entries it owns and zeros elsewhere, and
+    one sum all-reduce over the group assembles them: a host tensor
+    under gloo (which moves CUDA tensors for all-reduce and broadcast
+    only, and these values are on the host already), a CUDA tensor
+    under NCCL.  The owners must partition the entries.  Every rank of
+    the group must call it, the same number of times.
+    """
+    group = None if axis is None else mesh.groups.get(axis)
+    if group is None:
+        return values
+    mine = torch.from_numpy(np.where(owned, values, 0).astype(np.int64))
+    buf = _for_backend(mine, group)
+    dist.all_reduce(buf, group=group)
+    return buf.cpu().numpy().astype(values.dtype)
+
+
+def broadcast_scalar(value: float, mesh: Mesh) -> float:
+    """Rank 0's ``value`` on every rank of ``mesh`` (a float64
+    broadcast; every rank must call it)."""
+    if mesh.group is None:
+        return value
+    buf = _for_backend(torch.tensor([value], dtype=torch.float64),
+                       mesh.group)
+    dist.broadcast(buf, src=0, group=mesh.group)
+    return float(buf.cpu()[0])

@@ -193,13 +193,6 @@ class TestEngine:
             got = [r.out for r in planned.run(_reqs(prompts))]
         assert got == _run(small, prompts, batch_slots=4, max_len=64)
 
-    def test_not_ported_options_raise(self, small):
-        # metrics and metrics_port are ported (tests/test_torch_obs*.py),
-        # warm_cache_dir too (TestWarmStart); a mesh still raises,
-        # naming its item (sharded serving).
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            Engine(small, small.params, mesh=object())
-
 
 class TestPagedAndChunked:
     def test_paged_tokens_equal_dense(self, small):

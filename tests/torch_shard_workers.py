@@ -7,6 +7,8 @@ same list of tasks in the same order (their collectives must meet) and
 returns one picklable result per task: numpy arrays, numbers, strings.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -98,7 +100,8 @@ def setup_errors(cfg, global_batch):
 def _site_info(sites):
     return [{"name": s.name, "offloaded": bool(s.offloaded),
              "reason": s.reason, "spmd": s.spmd, "repr": repr(s),
-             "m": s.m, "k": s.k, "n": s.n} for s in sites]
+             "m": s.m, "k": s.k, "n": s.n, "mult": s.mult,
+             "splits": s.splits} for s in sites]
 
 
 def train(cfg, spec, steps, grad_reduce="bucketed", backend="",
@@ -173,6 +176,133 @@ def cuda_gloo():
             "a": out["a"].cpu().numpy(), "b": out["b"].cpu().numpy()}
 
 
+def slot_kv(eng, slot):
+    """Slot ``slot``'s cached K and V on this rank, ``(L, KV, length,
+    head_dim)`` each as numpy, read through its block table (paged) or
+    its row of the rectangle (dense)."""
+    runner, kv = eng.runner, eng.kv
+    n = int(runner._len[slot])
+
+    def take(buf):
+        if runner.layout == "paged":
+            blocks = [b - kv._base for b in kv._mapped[slot]]
+            got = buf[:, blocks].permute(0, 2, 1, 3, 4)
+            got = got.reshape(got.shape[0], got.shape[1], -1, got.shape[4])
+        else:
+            got = buf[:, runner._local[slot]]
+        return got[:, :, :n].detach().cpu().numpy().copy()
+
+    return take(eng.cache["k"]), take(eng.cache["v"])
+
+
+def watch(eng, reqs):
+    """Record what ``eng`` does while it serves ``reqs``: the shapes of
+    the waves this process runs, the admissions ``(slot, request
+    index)`` in order, and, numbered by their order over every slot,
+    the K/V of each of this process's slots just before it is released."""
+    rec = {"waves": [], "admitted": [], "released": 0, "snapshots": {}}
+    runner, kv = eng.runner, eng.kv
+    index = {id(r): i for i, r in enumerate(reqs)}
+    wave, enqueue, release = (runner.prefill_wave, runner.enqueue_prefill,
+                              kv.release)
+
+    def recorded_wave():
+        res = wave()
+        if res is not None and res.rows:
+            rec["waves"].append((res.rows, res.width))
+        return res
+
+    def recorded_enqueue(slot, req):
+        rec["admitted"].append((slot, index[id(req)]))
+        enqueue(slot, req)
+
+    def recorded_release(slot):
+        if slot in runner._local:
+            rec["snapshots"][(rec["released"], slot)] = slot_kv(eng, slot)
+        rec["released"] += 1
+        release(slot)
+
+    runner.prefill_wave = recorded_wave
+    runner.enqueue_prefill = recorded_enqueue
+    kv.release = recorded_release
+    return rec
+
+
+def lm_head(cfg, seed):
+    """A seeded LM head for ``cfg`` (0.1 x standard normal, float64), made
+    in the rank: an array in the spawn arguments would grow each rank's
+    start-up message past a pipe's buffer and start the ranks one by
+    one."""
+    return 0.1 * np.random.default_rng(seed).standard_normal(
+        (cfg.d_model, cfg.vocab_size))
+
+
+def make_requests(requests):
+    from repro_torch.serve import Request
+
+    return [Request(**r) for r in requests]
+
+
+def serve(cfg, spec, seed, requests, head_seed=None, policy=None,
+          plan=None, metrics_dir=None, probe=(), **engine_kw):
+    """Serve ``requests`` (Request fields) with ``Engine(mesh=)`` on this
+    rank: the model of ``cfg`` from ``seed`` with the LM head of
+    :func:`lm_head` from ``head_seed``, under
+    ``policy`` (PrecisionPolicy fields) or ``plan``, with a MetricsRun of
+    its own under ``metrics_dir``.  Returns the streams, the mesh
+    coordinates, the cache's shapes and local slots, :func:`watch`'s
+    record, the enqueue stamps, the prefill sites at each ``(rows,
+    width)`` of ``probe`` and, after the run, at each wave shape it ran
+    (in the order first run, which the tp ranks of a group share), and
+    the run's ``site_exec`` total."""
+    from repro_torch.obs import MetricsRun
+    from repro_torch.serve import Engine
+
+    mesh = build_mesh(spec)
+    model = Model(cfg, device="cpu", seed=seed)
+    if head_seed is not None:
+        with torch.no_grad():
+            model.lm_head.copy_(torch.from_numpy(lm_head(cfg, head_seed)))
+    run = (None if metrics_dir is None else MetricsRun(
+        os.path.join(metrics_dir, f"rank{mesh.rank}")))
+    eng = Engine(model, model.params, mesh=mesh, plan=plan,
+                 policy=None if policy is None else PrecisionPolicy(
+                     **policy), metrics=run, **engine_kw)
+    reqs = make_requests(requests)
+    rec = watch(eng, reqs)
+    eng.run(reqs)
+    out = {"tokens": [r.out for r in reqs], "coords": dict(mesh.coords),
+           "k_shape": tuple(eng.cache["k"].shape),
+           "length_shape": tuple(eng.cache["length"].shape),
+           "local_slots": eng.kv.local_slots.tolist(),
+           "wq_shape": tuple(eng.params["blocks"]["wq"].shape),
+           "stamps": [eng.scheduler.t_enqueue(r) for r in reqs],
+           "sites": {shape: _site_info(eng.prefill_sites(*shape))
+                     for shape in probe}, **rec}
+    out["wave_sites"] = {
+        shape: _site_info(eng.prefill_sites(*shape))
+        for shape in dict.fromkeys(rec["waves"])}
+    if run is not None:
+        out["site_exec"] = sum(m["value"] for m in run.registry.snapshot()
+                               if m["name"] == "site_exec")
+        run.close()
+    return out
+
+
+def serve_errors(cfg, spec, batch_slots):
+    """The message of ``Engine(mesh=)`` for ``batch_slots`` slots."""
+    from repro_torch.serve import Engine
+
+    model = Model(cfg, device="cpu", seed=0)
+    try:
+        Engine(model, model.params, batch_slots=batch_slots,
+               mesh=build_mesh(spec))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 TASKS = {"collectives": collectives, "replicated": replicated,
          "setup_errors": setup_errors,
-         "train": train, "stale_plan": stale_plan}
+         "train": train, "stale_plan": stale_plan, "serve": serve,
+         "serve_errors": serve_errors}
