@@ -50,8 +50,9 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    gathered copies beside its gather;
 8. trains it: SmolLM-360M at full width through ``launch.train.main``,
    4 steps natively and 4 through ``pallas_int8_6``, the gradient
-   emulated against native at each step, a kill-and-resume, one
-   profiled step of each; then on meshes of processes that share the
+   emulated against native at each step, a kill-and-resume (at full
+   width, 8 of the 32 layers), one profiled step of each, the native
+   run's step-4 checkpoint kept for phase 14; then on meshes of processes that share the
    card over gloo (``phase_shard``): 2 steps at ``--mesh dp=2`` and at
    ``--mesh dp=1,tp=5``, K1 held bitwise at every new per-shard shape,
    each rank's K1 launches against its ``site_exec`` and the site
@@ -98,9 +99,32 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    the errors against the a-priori bound, the ``Function``'s opacity and
    zero gradient, and prints the loop's roofline
    (``repro_torch.analysis.roofline``) beside its measured time;
-13. prints one JSON line describing every ported kernel (K1 once per
-   timed shape, the plan's three most-launched pairs among them), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+13. runs every torch entry point and einsum form the offload once
+   missed or refused (``phase_entry_points``: ``tensordot``, ``inner``,
+   ``linalg.matmul``, ``linalg.multi_dot``, ``chain_matmul``,
+   ``baddbmm``, ``addbmm``, the in-place forms, einsum ellipses and
+   implicit outputs) in float64 through ``pallas_int8_6`` at 4096^2:
+   K1 held bitwise at the two shapes they add, each form's K1 launches
+   against its sites and the hook, its result bitwise equal to the same
+   product in a form handled before, its error at the 4096^2 ladder's
+   s = 6 level; the vector forms and a repeated index held by name and
+   gate reason;
+14. runs the examples workflow (``phase_examples``): the port's
+   ``examples/torch_*.py`` as processes of their own at the tiny preset
+   (train, serve the checkpoint, tune a plan, train and serve under it,
+   a warm restart passing ``obs report --expect-cache-hit`` and a live
+   ``/metrics`` scrape, both with K1 on the prefill wave, ``obs report
+   --all --check`` and ``export``), then ``python -m
+   repro_torch.launch.serve``'s ``build`` and ``run`` serving
+   SmolLM-360M at full width from phase 8's step-4 checkpoint with K1
+   on its prefill wave (launches against the site report, streams
+   against an in-process ``Engine``, tokens/s by CUDA events beside
+   phase 6's), the
+   quickstart's ladder and the MuST study's gates;
+15. prints one JSON line describing every ported kernel (K1 once per
+   timed shape, the plan's three most-launched pairs among them, the
+   entry points' and the CLI's wave shapes), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Before the kernels it holds the seeded parameters (the reference's
 ``jax.random`` draws, ``repro_torch.models.prng``) card against CPU
@@ -485,6 +509,7 @@ def phase_ladder(size=4096):
         print(f"[ladder] {size}^2 pallas_int8_{s}: max rel err {err:.3e} "
               f"({time.perf_counter() - t0:.3f} s)")
     hold_ladder(errs, floor, f"{size}^2 ladder")
+    return errs
 
 
 def phase_must(n=4096, block=256, n_energies=9):
@@ -968,6 +993,12 @@ TRAIN_GRAD_BOUND = 1e-4
 # off by O(1).
 TUNE_GRAD_BOUND = 1e-3
 TRAIN_DIR = os.path.join(ROOT, "build", "train_smoke")
+# The native run's step-4 checkpoint (4.9 GB), kept from phase_train for
+# phase_examples, which serves it through ``python -m
+# repro_torch.launch.serve``'s ``main`` and deletes it.
+SERVE_CKPT_DIR = os.path.join(ROOT, "build", "serve_cli_ckpt")
+# Depth of the kill-and-resume check (full width, 8 of the 32 layers).
+RESUME_LAYERS = 8
 
 
 def train_argv(steps, ckpt_dir, backend="", overrides=None,
@@ -1224,6 +1255,9 @@ def phase_train(errs, **overrides):
             shapes=launched.seen, step_ms=report["step_ms"],
             wall=time.perf_counter() - t0,
             peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if label == "native":
+            shutil.rmtree(SERVE_CKPT_DIR, ignore_errors=True)
+            os.replace(os.path.join(TRAIN_DIR, label), SERVE_CKPT_DIR)
         shutil.rmtree(os.path.join(TRAIN_DIR, label), ignore_errors=True)
         print(f"[train] {label}: losses {losses}; step ms {report['step_ms']}"
               f" (median after the first "
@@ -1255,7 +1289,9 @@ def phase_train(errs, **overrides):
         fail(f"K1 launched at {sorted(runs[spec]['shapes'] - set(held))}, "
              "shapes it was not held at")
 
-    phase_train_resume(spec, overrides)
+    # The kill-and-resume runs 8 of the 32 layers: three checkpoints of
+    # the full depth (4.9 GB each) took 65 s of the smoke's time limit.
+    phase_train_resume(spec, {"num_layers": RESUME_LAYERS, **overrides})
     k1_ms = phase_train_profile(spec, policy, overrides)
     return launches, dict(native_losses=native, emulated_losses=emul,
                           step_ms=_median_after_first(runs[spec]["step_ms"]),
@@ -2681,6 +2717,459 @@ def phase_control_flow(n=4096, block=256):
     return launches
 
 
+# F6 and F7 on the card (phase_entry_points): each torch entry point
+# and einsum form that offload once missed or refused, beside a form the
+# port handled before, at the MuST widths.  (name, program, the same
+# product in an earlier form, operand keys.)
+ENTRY_SPLITS = 6
+ENTRY_BATCH = 2
+ENTRY_LADDER_FACTOR = 8.0
+ENTRY_FORMS = [
+    ("tensordot", lambda a, b: torch.tensordot(a, b, 1),
+     lambda a, b: torch.matmul(a, b), "ab"),
+    ("tensordot dims", lambda a, b: torch.tensordot(a, b, ([1], [0])),
+     lambda a, b: a @ b, "ab"),
+    ("linalg.matmul", torch.linalg.matmul, torch.matmul, "ab"),
+    ("inner", torch.inner, lambda a, b: torch.matmul(a, b.mT), "ab"),
+    ("linalg.multi_dot", lambda a, b, c: torch.linalg.multi_dot([a, b, c]),
+     lambda a, b, c: torch.einsum("ab,bc,cd->ad", a, b, c), "abc"),
+    ("chain_matmul", torch.chain_matmul,
+     lambda a, b, c: torch.einsum("ab,bc,cd->ad", a, b, c), "abc"),
+    ("baddbmm", torch.baddbmm, lambda x, p, q: x + torch.bmm(p, q), "Xpq"),
+    ("addbmm", torch.addbmm,
+     lambda x, p, q: x + torch.einsum("bij,bjk->ik", p, q), "xpq"),
+    ("addmm_", lambda x, a, b: x.clone().addmm_(a, b),
+     lambda x, a, b: x + a @ b, "xab"),
+    ("baddbmm_", lambda x, p, q: x.clone().baddbmm_(p, q),
+     lambda x, p, q: x + p @ q, "Xpq"),
+    ("addbmm_", lambda x, p, q: x.clone().addbmm_(p, q),
+     lambda x, p, q: x + torch.einsum("bij,bjk->ik", p, q), "xpq"),
+    ("einsum ...ij,...jk->...ik",
+     lambda p, q: torch.einsum("...ij,...jk->...ik", p, q), torch.matmul,
+     "pq"),
+    ("einsum bij,bjk", lambda p, q: torch.einsum("bij,bjk", p, q),
+     lambda p, q: torch.einsum("bij,bjk->ik", p, q), "pq"),
+]
+# The vector forms and the repeated index: one site each, gated by size.
+ENTRY_GATED = [
+    ("mv", torch.mv, "av"), ("dot", torch.dot, "vv"),
+    ("vdot", torch.vdot, "vv"), ("addmv", torch.addmv, "vav"),
+    ("addmv_", lambda v, a, w: v.clone().addmv_(a, w), "vav"),
+    ("linalg.vecdot", torch.linalg.vecdot, "ab"),
+    ("einsum bii,bij->bj", lambda p, q: torch.einsum("bii,bij->bj", p, q),
+     "pq"),
+]
+
+
+def phase_entry_points(errs, ladder, n=4096):
+    """F6 and F7 on the card: every torch entry point and einsum form
+    the offload once missed (F6) or refused (F7), in float64 through
+    pallas_int8_6 (K1) at the MuST widths (n^2 operands, batched ones
+    ``ENTRY_BATCH`` deep), ``min_dim`` at its default.
+
+    K1 is held bitwise against its plain version at the two shapes the
+    phase adds ((n, n, n) and addbmm's (n, 2n, n)).  Per form, with the
+    counters zeroed just before and read just after: K1's launches equal
+    its offloaded sites' batch x mult and the hook's executions their
+    mult; its result equals, to the bit, the same product in a form the
+    port handled before; its error against native FP64 (normalized by
+    the product of |operands|) is within ``ENTRY_LADDER_FACTOR`` of the
+    n^2 ladder's s = 6 reading ``ladder[3]``.  The gated forms' sites
+    are held by name and gate reason, with no launch.  Returns K1's
+    launches over the offloaded forms."""
+    from collections import Counter
+
+    from repro_torch.core import PrecisionPolicy, offload
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    phase_k1_train_shapes(errs, [(n, n, n), (n, ENTRY_BATCH * n, n)],
+                          s=ENTRY_SPLITS, tag="entry")
+    gen = np.random.default_rng(1)
+    ops_ = {key: torch.from_numpy(gen.standard_normal(shape)).cuda()
+            for key, shape in (("a", (n, n)), ("b", (n, n)), ("c", (n, n)),
+                               ("x", (n, n)), ("v", (n,)),
+                               ("p", (ENTRY_BATCH, n, n)),
+                               ("q", (ENTRY_BATCH, n, n)),
+                               ("X", (ENTRY_BATCH, n, n)))}
+    policy = PrecisionPolicy(backend="pallas_int8",
+                             default_splits=ENTRY_SPLITS)
+    limit = ENTRY_LADDER_FACTOR * ladder[3]
+    total = Counter()
+    rows = []
+    for name, form, earlier, keys in ENTRY_FORMS:
+        args = [ops_[key] for key in keys]
+        hooked = Counter()
+        prog = offload(form, policy,
+                       on_site_event=lambda p: hooked.update([p["site"]]))
+        on = [site for site in prog.sites(*args) if site.offloaded]
+        want = sum(site.batch * site.mult for site in on)
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        out = prog(*args)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        total.update(launches)
+        same = offload(earlier, policy)(*args)
+        exact = form(*args)
+        mag = form(*[t.abs() for t in args])
+        rel = float(((out - exact).abs() / mag).max())
+        rows.append(f"{name}: sites "
+                    f"{[(s.name, s.m, s.k, s.n, s.batch) for s in on]}, K1 "
+                    f"{launches['split_gemm']}, hook {sum(hooked.values())}"
+                    f", error {rel:.3e}")
+        print(f"[entry] {rows[-1]}", flush=True)
+        if (not on or launches["split_gemm"] != want
+                or sum(launches.values()) != want
+                or sum(hooked.values()) != sum(s.mult for s in on)):
+            fail(f"entry point {name}: K1 launches {launches}, hook "
+                 f"{dict(hooked)} against the sites {on}")
+        if not torch.equal(out, same):
+            fail(f"entry point {name}: result differs from the earlier "
+                 "form's bits")
+        if not rel <= limit:
+            fail(f"entry point {name}: error {rel:.3e} against FP64 over "
+                 f"{ENTRY_LADDER_FACTOR} x the {n}^2 ladder's s=6 "
+                 f"{ladder[3]:.3e}")
+    gate = f"min(m,k,n)=1 < min_dim={policy.min_dim}"
+    for name, form, keys in ENTRY_GATED:
+        args = [ops_[key] for key in keys]
+        prog = offload(form, policy)
+        sites = [(s.name, s.offloaded, s.reason) for s in prog.sites(*args)]
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        prog(*args)
+        torch.cuda.synchronize()
+        print(f"[entry] {name}: sites {sites}, K1 "
+              f"{ops.LAUNCHES['split_gemm']}")
+        if sites != [("dot0", False, gate)] or any(ops.LAUNCHES.values()):
+            fail(f"entry point {name}: sites {sites} (want one gated "
+                 f"dot0: {gate}), launches {dict(ops.LAUNCHES)}")
+    print(f"[entry] {len(ENTRY_FORMS)} offloaded forms bitwise equal to "
+          f"their earlier forms, errors within {limit:.3e}; "
+          f"{len(ENTRY_GATED)} gated forms named and gated as the "
+          f"reference; K1 {total['split_gemm']} launches; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {key: total[key] for key in ops.LAUNCHES}
+
+
+EXAMPLES_DIR = os.path.join(ROOT, "build", "examples_smoke")
+EXAMPLES_TIMEOUT = 600
+# The full-width CLI's batch: 4 prompts of 16 tokens, one prefill wave
+# of 64 rows; --min-dim at those rows puts K1 on its projections.
+CLI_WAVE_ROWS = 4 * 16
+
+
+def _example(*argv, timeout=EXAMPLES_TIMEOUT):
+    """One example or ``python -m`` module, from ``EXAMPLES_DIR`` in a
+    process of its own: its stdout and stderr together; fails on a
+    nonzero exit."""
+    cmd = [sys.executable] + [os.path.join(ROOT, "examples", a)
+                              if a.endswith(".py") else a for a in argv]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=EXAMPLES_DIR, env=env, text=True,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          timeout=timeout)
+    print(f"[examples] {' '.join(argv)}: exit {done.returncode} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if done.returncode:
+        fail(f"{' '.join(argv)} exited {done.returncode}:\n"
+             f"{done.stdout[-4000:]}")
+    return done.stdout
+
+
+def _gates(text, what, *present, absent=()):
+    for want in present:
+        if want not in text:
+            fail(f"{what}: {want!r} not printed:\n{text[-4000:]}")
+    for bad in absent:
+        if bad in text:
+            fail(f"{what}: {bad!r} printed:\n{text[-4000:]}")
+
+
+def _live_scrape(argv):
+    """Start the serve example with ``--metrics-port 0``, scrape its
+    ``/metrics`` once decoding is done (the hold message), and wait for
+    it to finish; returns (scraped series, its output)."""
+    import queue
+    import threading
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", argv[0])]
+        + list(argv[1:]), cwd=EXAMPLES_DIR, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    lines = queue.Queue()
+    reader = threading.Thread(
+        target=lambda: [lines.put(line) for line in proc.stdout] and None,
+        daemon=True)
+    reader.start()
+    seen, url, series = [], None, None
+    deadline = time.monotonic() + EXAMPLES_TIMEOUT
+    try:
+        while series is None:
+            try:
+                line = lines.get(timeout=max(deadline - time.monotonic(),
+                                             0.1))
+            except queue.Empty:
+                fail(f"live scrape: no hold message:\n{''.join(seen)}")
+            seen.append(line)
+            if "live metrics: " in line:
+                url = line.split("live metrics: ")[1].strip()
+                url = url[:-len("/metrics")]
+            if "holding /metrics" in line:
+                if url is None:
+                    fail(f"live scrape: no URL printed:\n{''.join(seen)}")
+                series = _scrape(url)
+        proc.wait(timeout=EXAMPLES_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=30)
+    while not lines.empty():
+        seen.append(lines.get())
+    if proc.returncode:
+        fail(f"live scrape: the server exited {proc.returncode}:\n"
+             f"{''.join(seen)[-4000:]}")
+    return series, "".join(seen)
+
+
+def _k1_site_execs(directory):
+    """Per run under ``directory`` (``events-NNNN.jsonl``), the K1
+    executions its telemetry recorded: the ``mult`` of each
+    ``site_exec`` event on the ``pallas_int8`` backend, summed."""
+    runs = []
+    for name in sorted(os.listdir(directory)):
+        if name.startswith("events-"):
+            with open(os.path.join(directory, name)) as f:
+                events = [json.loads(line) for line in f]
+            runs.append(sum(e["mult"] for e in events
+                            if e.get("type") == "site_exec"
+                            and e.get("backend") == "pallas_int8"))
+    return runs
+
+
+def phase_examples(errs, served):
+    """The examples workflow (``.github/workflows/examples.yml``) through
+    the port's examples, each a process of its own on the card, in
+    ``EXAMPLES_DIR``, held to the workflow's gates; then the full-width
+    CLI, the quickstart and the MuST study.
+
+    Tiny preset: train 4 steps (``fp64_int8_4``), serve that checkpoint;
+    tune 2 batches into a plan, train 4 steps and serve under it; serve
+    twice with ``--splits 6 --min-dim 64 --warm-cache-dir`` (the prefill
+    wave's 64 rows: K1 held bitwise at the wave's shapes first, and each
+    run's telemetry holding the K1 executions the site report predicts),
+    then ``obs report --check --expect-cache-hit`` (the port's warm start
+    re-checks decisions, so the restart counts through
+    ``disk_decisions_hit``); a served run under the same flags with its
+    live ``/metrics`` scraped for ``serve_ttft``, ``transform_cache`` and
+    ``slo_burn_rate``; ``obs report --all --check`` and ``export`` over
+    the plan lineage.  The obs CLI runs in this process (``_obs_cli``).
+
+    Full width: ``python -m repro_torch.launch.serve``'s ``build`` and
+    ``run`` (its ``main``, the runner wrapped in CUDA events between the
+    two) serve SmolLM-360M from phase_train's step-4 checkpoint with
+    ``--splits 6 --min-dim 64`` (its one wave's rows): K1 held bitwise
+    at the wave's shapes first, its launches (counters zeroed just
+    before, read just after) equal to the site report's prediction, its
+    streams equal to an in-process ``Engine``'s on the same parameters
+    and policy, its tokens/s printed beside phase 6's.  Then ``torch_quickstart.py``
+    (the ladder strictly falling for s = 3..9) and
+    ``torch_must_greens_function.py --n 384 --block 96 --energies 9``
+    (``max_real`` falling with the splits, the error peak at the
+    energies nearest E_f).  Returns K1's launches of the full-width run."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PrecisionPolicy, site_report
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, Request
+
+    t0 = time.perf_counter()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    os.makedirs(EXAMPLES_DIR)
+    plan_dir = "runs/ckpt/torch_lm_tiny_plan"
+    out = _example("torch_train_lm.py", "--steps", "4", "--backend",
+                   "fp64_int8_4", "--preset", "tiny")
+    _gates(out, "train", "[train_lm] OK: loss improved")
+    out = _example("torch_serve_lm.py", "--preset", "tiny")
+    _gates(out, "serve", "loading checkpoint step 4", "[serve] OK",
+           absent=("restore failed",))
+    out = _example("torch_train_lm.py", "--preset", "tiny", "--tune", "2",
+                   "--plan", "runs/plans/tiny.json", "--ckpt-dir", plan_dir)
+    _gates(out, "tune", "INT8 GEMMs per step")
+    for path in ("runs/plans/tiny.json", "runs/plans/tiny.tiles.json"):
+        if not os.path.getsize(os.path.join(EXAMPLES_DIR, path)):
+            fail(f"tune: {path} is empty")
+    out = _example("torch_train_lm.py", "--steps", "4", "--preset", "tiny",
+                   "--plan", "runs/plans/tiny.json", "--ckpt-dir", plan_dir)
+    _gates(out, "train under the plan", "[train_lm] OK")
+    out = _example("torch_serve_lm.py", "--preset", "tiny", "--plan",
+                   "runs/plans/tiny.json", "--ckpt-dir", plan_dir)
+    _gates(out, "serve under the plan", "precision plan",
+           "loading checkpoint step 4", "[serve] OK",
+           absent=("restore failed",))
+    # --min-dim at the tiny prefill wave's 64 rows: K1 on its
+    # projections (decode ticks, 4 rows, stay gated).
+    tiny = Model(get_config("tiny"), device="cpu", seed=0)
+    wave_sites = [site for site in Engine(
+        tiny, tiny.params, batch_slots=4, max_len=512,
+        policy=PrecisionPolicy(backend="pallas_int8", default_splits=6,
+                               min_dim=CLI_WAVE_ROWS)).prefill_sites(4, 16)
+        if site.offloaded]
+    phase_k1_train_shapes(errs, sorted({(s_.m, s_.k, s_.n)
+                                        for s_ in wave_sites}),
+                          s=6, tag="examples")
+    per_run = sum(site.mult for site in wave_sites)
+    del tiny
+    warm = ["--preset", "tiny", "--splits", "6", "--min-dim",
+            str(CLI_WAVE_ROWS), "--max-new-tokens", "8",
+            "--warm-cache-dir", "runs/serve-cache", "--ckpt-dir", plan_dir]
+    for _ in range(2):
+        out = _example("torch_serve_lm.py", *warm, "--metrics-dir",
+                       "runs/serve-restart/metrics")
+        _gates(out, "serve restart", "[serve] OK")
+    restart = os.path.join(EXAMPLES_DIR, "runs/serve-restart/metrics")
+    execs = _k1_site_execs(restart)
+    print(f"[examples] warm restart: K1 executions per run {execs} "
+          f"(telemetry), {per_run} predicted from the site report")
+    if execs != [per_run] * 2 or per_run == 0:
+        fail(f"warm restart: K1 executions {execs} != {per_run} per run")
+    code, text = _obs_cli("report", restart, "--check", "--expect-cache-hit")
+    if code:
+        fail(f"obs report --check --expect-cache-hit exited {code}:\n{text}")
+    series, out = _live_scrape(
+        ["torch_serve_lm.py"] + warm
+        + ["--metrics-dir", "runs/serve-live/metrics", "--latency-target-s",
+           "120", "--scheduler-policy", "edf", "--metrics-port", "0",
+           "--hold-metrics-s", "3"])
+    _gates(out, "live serve", "[serve] OK")
+    execs = _k1_site_execs(os.path.join(EXAMPLES_DIR,
+                                        "runs/serve-live/metrics"))
+    if execs != [per_run]:
+        fail(f"live serve: K1 executions {execs} != [{per_run}]")
+    names = {name for name, _ in series}
+    for want in ("serve_ttft", "transform_cache", "slo_burn_rate"):
+        if not any(name.startswith(want) for name in names):
+            fail(f"/metrics carries no {want} series: {sorted(names)}")
+    lineage = os.path.join(EXAMPLES_DIR, plan_dir, "metrics")
+    trace = os.path.join(EXAMPLES_DIR, "trace.json")
+    for argv in (("report", lineage, "--all", "--check"),
+                 ("export", lineage, "--all", "-o", trace)):
+        code, text = _obs_cli(*argv)
+        if code:
+            fail(f"obs {' '.join(argv)} exited {code}:\n{text}")
+    if not os.path.getsize(trace):
+        fail("obs export wrote an empty trace")
+    print(f"[examples] tiny workflow: every gate held; /metrics "
+          f"{sorted(n for n in names if n.startswith(('serve_ttft', 'transform_cache', 'slo_burn_rate')))}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Full width: the CLI serves phase_train's checkpoint.
+    t1 = time.perf_counter()
+    cfg = get_config("smollm_360m")
+    kn = serve_gemm_shapes(cfg)
+    phase_k1_train_shapes(errs, [(CLI_WAVE_ROWS, k, n) for k, n in kn],
+                          s=6, tag="examples")
+    argv = ["--arch", "smollm_360m", "--splits", "6", "--min-dim",
+            str(CLI_WAVE_ROWS), "--ckpt-dir", SERVE_CKPT_DIR,
+            "--metrics-dir", "none"]
+    text = io.StringIO()
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    with contextlib.redirect_stdout(text):
+        args, eng, reqs = serve_cli.build(argv, device="cuda")
+        cli = _timed_runner(eng.runner)
+        done = serve_cli.run(args, eng, reqs)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    print(text.getvalue(), end="")
+    _gates(text.getvalue(), "full-width serve", "loading checkpoint step 4",
+           "[serve] OK", absent=("restore failed",))
+    policy = eng.policy
+    if cli["waves"] != [(4, 16)]:
+        fail(f"full-width serve: waves {cli['waves']}, expected one of "
+             "(4, 16)")
+    per_wave = sum(site.mult for rows, width in cli["waves"]
+                   for site in eng.prefill_sites(rows, width)
+                   if site.offloaded)
+    with torch.no_grad():
+        decode_sites = site_report(eng.model.decode_step_paged, policy)(
+            eng.params, eng.cache,
+            torch.zeros(4, dtype=torch.int32, device="cuda"),
+            torch.ones(4, dtype=torch.bool, device="cuda"))
+    per_tick = sum(site.mult for site in decode_sites if site.offloaded)
+    predicted = per_wave + per_tick * cli["ticks"]
+    print(f"[examples] full-width CLI: K1 launches {launches['split_gemm']}"
+          f", predicted {predicted} from the site report ({per_wave} a "
+          f"wave of {CLI_WAVE_ROWS} rows, {per_tick} a tick x "
+          f"{cli['ticks']} ticks)")
+    if launches != {"split_gemm": predicted, "split_gemm_fused": 0,
+                    "split_gemm_v1": 0, "gather_pairs_kmajor": 0} \
+            or predicted == 0:
+        fail(f"full-width CLI launches {launches} != predicted {predicted}")
+    again = Engine(eng.model, eng.params, batch_slots=4, max_len=512,
+                   policy=policy)
+    gen = np.random.default_rng(0)
+    reqs = [Request(prompt=[int(t) for t in
+                            gen.integers(1, cfg.vocab_size, 16)],
+                    max_new_tokens=24, seed=i) for i in range(4)]
+    again.run(reqs)
+    if [r.out for r in reqs] != [r.out for r in done]:
+        fail("full-width CLI streams differ from an in-process Engine's")
+    rec = served["rec"]
+    print(f"[examples] full-width CLI: streams equal an in-process "
+          f"Engine's for 4 of 4; prefill {cli['prefill_tokens']} tokens "
+          f"{cli['prefill_tokens'] / (cli['prefill_ms'] / 1e3):.1f} tok/s, "
+          f"decode {cli['decode_tokens']} tokens "
+          f"{cli['decode_tokens'] / (cli['decode_ms'] / 1e3):.1f} tok/s "
+          f"(CUDA events; phase 6: prefill "
+          f"{rec['prefill_tokens'] / (rec['prefill_ms'] / 1e3):.1f}, decode "
+          f"{rec['decode_tokens'] / (rec['decode_ms'] / 1e3):.1f} tok/s); "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    del again, eng, done
+    shutil.rmtree(SERVE_CKPT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # The studies.
+    out = _example("torch_quickstart.py")
+    _gates(out, "quickstart", "[quickstart] OK")
+    ladder = [float(x) for x in re.findall(
+        r"fp64_int8_\d\s+(\S+)\n", out)][:7]
+    if len(ladder) != 7 or not all(b < a for a, b in zip(ladder, ladder[1:])):
+        fail(f"quickstart ladder {ladder} does not fall strictly")
+    must_dir = os.path.join(EXAMPLES_DIR, "runs", "must_torch")
+    out = _example("torch_must_greens_function.py", "--n", "384",
+                   "--block", "96", "--energies", "9", "--splits", "3",
+                   "6", "9", "--outdir", must_dir)
+    table = [line.split(",") for line in open(
+        os.path.join(must_dir, "table1.csv")).read().split()[1:]]
+    worst = [float(row[1]) for row in table]
+    if not worst[0] > worst[1] > worst[2]:
+        fail(f"MuST example max_real does not fall with s: {worst}")
+    fig = [line.split(",") for line in open(
+        os.path.join(must_dir, "fig1.csv")).read().split()[1:]]
+    for mode in ("fp64_int8_3", "fp64_int8_6"):
+        rows_ = [(float(r[1]), float(r[3])) for r in fig if r[0] == mode]
+        dist = [abs(re_z - FERMI) for re_z, _ in rows_]
+        peak = max(range(len(rows_)), key=lambda i: rows_[i][1])
+        if dist[peak] > min(dist) + 1e-4:
+            fail(f"MuST example {mode} error peaks at E="
+                 f"{rows_[peak][0]}, not nearest E_f")
+    print(f"[examples] quickstart ladder {ladder}; MuST n=384 max_real "
+          f"{worst} (s = 3, 6, 9), peaks nearest E_f; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    return launches
+
+
 def phase_init():
     """Seeded parameters (``repro_torch.models.prng``) on the card against
     the CPU, to the bit, for the ``tiny`` config at two seeds, and the
@@ -3158,7 +3647,7 @@ def main():
     checked_kn = phase_kernels_vs_plain(errs)
     phase_pow2()
     phase_k1_plans(errs)
-    phase_ladder()
+    ladder = phase_ladder()
     launches = phase_must()
     phase_profile("pallas_int8_6")
     phase_profile("pallas_int8_6:fused")
@@ -3183,6 +3672,10 @@ def main():
     torch.cuda.empty_cache()
     cf_launches = phase_control_flow()
     torch.cuda.empty_cache()
+    entry_launches = phase_entry_points(errs, ladder)
+    torch.cuda.empty_cache()
+    example_launches = phase_examples(errs, served)
+    torch.cuda.empty_cache()
     # Launch counts per kernel: the main paths' runs (MuST, serve, train,
     # the train and serve meshes' ranks, the tune phase's plan-driven
     # train and serve, both again with telemetry on, the warm-started
@@ -3192,13 +3685,15 @@ def main():
              + train_launches[key] + shard_launches[key]
              + serve_shard_launches[key] + tune_launches[key]
              + obs_launches[key] + warm_launches[key] + cf_launches[key]
+             + entry_launches[key] + example_launches[key]
              for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
           f"train {train_launches}, shard ranks {shard_launches}, "
           f"serve-shard ranks {serve_shard_launches}, tune "
           f"{tune_launches}, obs "
           f"{obs_launches}, warm start {warm_launches}, control flow "
-          f"{cf_launches}, v1 A/B {v1_launches}")
+          f"{cf_launches}, entry points {entry_launches}, full-width CLI "
+          f"{example_launches}, v1 A/B {v1_launches}")
     shapes = k1_timed_shapes()
     shapes += [pair for pair in tune_pairs if pair not in shapes][:3]
     shapes += [(shape, TRAIN_SPLITS) for shape in shard_shapes
@@ -3207,6 +3702,13 @@ def main():
     shapes += [(shape, TRAIN_SPLITS) for shape in serve_shard_shapes
                if shape[0] == 768 and shape[1:] in SERVE_TP5_KN
                and (shape, TRAIN_SPLITS) not in shapes]
+    # The entry points' new shapes and the CLI's waves: full width, and
+    # the tiny examples' served in their own processes.
+    shapes += [((4096, 4096, 4096), ENTRY_SPLITS),
+               ((4096, ENTRY_BATCH * 4096, 4096), ENTRY_SPLITS)]
+    from repro_torch.configs import get_config
+    shapes += [((CLI_WAVE_ROWS, k, n), 6) for arch in ("smollm_360m", "tiny")
+               for k, n in serve_gemm_shapes(get_config(arch))]
     rows = (phase_k1_timings(errs, total, shapes)
             + phase_timings(errs, total))
     print(json.dumps({"kernels": rows}))

@@ -5,10 +5,18 @@ calls of an unmodified application at link time and redirects large
 GEMMs to the INT8 emulation engine.  A torch program has no jaxpr; its
 counterpart of link-time interception is a
 :class:`torch.overrides.TorchFunctionMode` around the call:
-:func:`offload` runs ``fn`` under a mode that catches every
-``torch.matmul`` / ``Tensor.__matmul__`` / ``Tensor.matmul``,
-``torch.mm``, ``torch.bmm``, ``torch.addmm``, ``F.linear`` and
-``torch.einsum`` call.
+:func:`offload` runs ``fn`` under a mode that catches every torch call
+whose ``jnp`` counterpart lowers to ``dot_general``: ``torch.matmul`` /
+``Tensor.__matmul__`` / ``Tensor.matmul`` / ``torch.linalg.matmul``,
+``torch.mm``, ``torch.bmm``, ``torch.mv``, ``torch.dot``,
+``torch.vdot``, ``torch.inner``, ``torch.tensordot``,
+``torch.linalg.vecdot``, ``torch.addmm``, ``torch.addmv``,
+``torch.baddbmm``, ``torch.addbmm`` (and the in-place ``addmm_``,
+``addmv_``, ``baddbmm_``, ``addbmm_``, which write their ``self``),
+``F.linear``, ``torch.einsum``, ``torch.linalg.multi_dot`` and
+``torch.chain_matmul``.  ``torch.outer``, ``torch.kron`` and
+``torch.addr`` are no sites (their ``jnp`` counterparts multiply), nor
+is any call given ``out=``.
 
 Each caught call is a *site*, named ``dot{i}`` in call order with the
 counter reset per call of ``fn``.  For straight-line programs,
@@ -33,9 +41,18 @@ exhaustive ``'optimal'`` search up to four operands; the port keeps
 its own copy of that search and uses it for any count, where
 opt_einsum switches to branch-and-bound and greedy searches beyond
 four), each contraction a site ``dot{j}``; an index summed out of one
-operand alone is summed first, natively, as ``jnp.einsum`` does.
-Ellipses, repeated indices and implicit outputs raise
-``NotImplementedError``.  A site passes the reference's
+operand alone is summed first, natively, as ``jnp.einsum`` does.  The
+equation is read as ``jnp.einsum`` reads it (opt_einsum's parser): an
+ellipsis stands for fresh indices, broadcast as numpy does; an implicit
+output is the indices that appear once, sorted, after the ellipsis'; an
+index repeated within one operand is its diagonal, taken before the
+contraction (or its trace, when the index goes nowhere else).
+``torch.linalg.multi_dot`` and ``chain_matmul`` are ``jnp.linalg.
+multi_dot``'s einsum, so they take its order; ``torch.tensordot``,
+``torch.inner`` and ``torch.linalg.vecdot`` are ``dot_general`` calls
+with the dimension numbers ``jnp.tensordot``, ``jnp.inner`` and
+``jnp.linalg.vecdot`` give, ``addbmm`` is ``x + jnp.einsum('bij,bjk->
+ik', ...)`` (one site, ``k`` = b·j).  A site passes the reference's
 dtype gate (floating or complex) and ``min_dim`` gate, honours
 ``site_splits`` / ``site_backends`` (``"dgemm"`` demotes it to
 native), and unmatched override keys are handled per
@@ -489,10 +506,67 @@ class _MatmulDims:
                 + ([("m",)] if self.a_mat else [])
                 + ([("n",)] if self.b_mat else []))
         y = y3.reshape(shape)
-        return y.permute(*[order.index(t) for t in want])
+        return y.permute([order.index(t) for t in want])
 
 
-class _EinsumDims:
+class _DotGeneralDims:
+    """A ``dot_general`` with explicit dimension numbers, normalised as
+    the reference's ``_DotDims``: batch axes (in batch-dim order) merge
+    into ``B``, free and contracted axes (in their own order) into
+    ``M``/``K``/``N``.  ``unpack`` gives the ``dot_general``'s output
+    ``(batch, lhs free, rhs free)``, permuted by ``out_perm`` and
+    reshaped to ``out_shape`` when the ``jnp`` function does so after.
+    """
+
+    swap = False   # the operands are packed in their own order
+
+    def __init__(self, lhs_shape, rhs_shape, contract, batch=((), ()),
+                 out_perm=None, out_shape=None):
+        (lc, rc), (lb, rb) = contract, batch
+        self.lhs_shape, self.rhs_shape = tuple(lhs_shape), tuple(rhs_shape)
+        lfree = [d for d in range(len(lhs_shape)) if d not in lc + lb]
+        rfree = [d for d in range(len(rhs_shape)) if d not in rc + rb]
+        self.lperm = (*lb, *lfree, *lc)
+        self.rperm = (*rb, *rc, *rfree)
+        self.batch_shape = tuple(lhs_shape[d] for d in lb)
+        self.m_shape = tuple(lhs_shape[d] for d in lfree)
+        self.n_shape = tuple(rhs_shape[d] for d in rfree)
+        self.B = math.prod(self.batch_shape)
+        self.M = math.prod(self.m_shape)
+        self.K = math.prod(lhs_shape[d] for d in lc)
+        self.N = math.prod(self.n_shape)
+        self.out_perm, self.out_shape = out_perm, out_shape
+
+    def pack(self, a, b):
+        a3 = a.permute(tuple(self.lperm)).reshape(self.B, self.M, self.K)
+        b3 = b.permute(tuple(self.rperm)).reshape(self.B, self.K, self.N)
+        return a3, b3
+
+    def unpack(self, y3):
+        y = y3.reshape(self.batch_shape + self.m_shape + self.n_shape)
+        if self.out_perm is not None:
+            y = y.permute(tuple(self.out_perm))
+        return y if self.out_shape is None else y.reshape(self.out_shape)
+
+
+def _diagonal(x, names: str, name: str, keep: bool):
+    """``jnp.einsum``'s ``sum_repeats`` for one index of ``x`` (axes
+    labelled ``names``): the diagonal over every axis ``name`` labels,
+    standing where its last occurrence stood, or summed out when
+    ``keep`` is false."""
+    left = list(names)
+    while left.count(name) > 1:
+        i, j = [d for d, c in enumerate(left) if c == name][:2]
+        x = torch.diagonal(x, dim1=i, dim2=j)   # appended last
+        del left[j], left[i]
+        left.append(name)
+    if not keep:
+        return x.sum(dim=-1)
+    return x.movedim(-1, names.replace(name, "", names.count(name) - 1)
+                     .index(name))
+
+
+class _EinsumDims(_DotGeneralDims):
     """``jnp.einsum``'s lowering of one two-operand contraction to
     ``dot_general``.
 
@@ -501,43 +575,61 @@ class _EinsumDims:
     facing a larger one in ``R`` is squeezed, then the same for ``R``
     against what is left of ``L``; an index summed out of one operand
     alone is summed there first (``L``'s, then ``R``'s, natively, as
-    ``jnp.einsum``'s ``reduce_sum``); contracted names are sorted, batch
-    names follow the output, and the ``dot_general`` is ``R @ L`` when
-    that yields the output names in order (batch, R's free, L's free),
-    else ``L @ R``.  ``pack`` builds ``(B, M, K)`` / ``(B, K, N)`` and
-    ``unpack`` the einsum's output from ``(B, M, N)``.
+    ``jnp.einsum``'s ``reduce_sum``); an index repeated within an
+    operand is its diagonal (``L``'s, then ``R``'s: ``sum_repeats``),
+    summed out when neither the output nor the other operand has it;
+    contracted names are sorted, batch names follow the output, and the
+    ``dot_general`` is ``R @ L`` when that yields the output names in
+    order (batch, R's free, L's free), else ``L @ R``.  ``pack``
+    reduces the operands and packs them as :class:`_DotGeneralDims`
+    does; ``unpack`` is its, permuted to the einsum's output.
     """
 
     def __init__(self, equation: str, lhs_shape, rhs_shape):
         eq = equation.replace(" ", "")
         inputs, out = eq.split("->")
         names = inputs.split(",")
-        shapes = [tuple(lhs_shape), tuple(rhs_shape)]
-        # [L, R] = [second, first], as (name, shape) pairs.
-        ops_ = [(names[1], shapes[1]), (names[0], shapes[0])]
-        self.squeeze = {}
-        for i in (0, 1):
+        # Keyed by torch operand index: 1 is L, 0 is R.
+        ops_ = {1: (names[1], tuple(rhs_shape)),
+                0: (names[0], tuple(lhs_shape))}
+        self.steps = {0: [], 1: []}
+
+        def drop(i, axes, kind):
+            own, shape = ops_[i]
+            if axes:
+                self.steps[i].append((kind, axes))
+            ops_[i] = ("".join(c for d, c in enumerate(own)
+                               if d not in axes),
+                       tuple(x for d, x in enumerate(shape)
+                             if d not in axes))
+
+        for i in (1, 0):
             own, shape = ops_[i]
             other, oshape = ops_[1 - i]
-            drop = [d for d, c in enumerate(own)
-                    if shape[d] == 1 and other.find(c) != -1
-                    and oshape[other.find(c)] != 1]
-            self.squeeze[1 - i] = drop   # keyed by torch operand index
-            ops_[i] = ("".join(c for d, c in enumerate(own)
-                               if d not in drop),
-                       tuple(x for d, x in enumerate(shape)
-                             if d not in drop))
-        self.sums = {}
-        for i in (0, 1):
-            own, shape = ops_[i]
-            drop = [d for d, c in enumerate(own)
-                    if c not in out and c not in ops_[1 - i][0]]
-            self.sums[1 - i] = drop
-            ops_[i] = ("".join(c for d, c in enumerate(own)
-                               if d not in drop),
-                       tuple(x for d, x in enumerate(shape)
-                             if d not in drop))
-        (ln, ls), (rn, rs) = ops_
+            drop(i, [d for d, c in enumerate(own)
+                     if shape[d] == 1 and other.find(c) != -1
+                     and oshape[other.find(c)] != 1], "squeeze")
+        counts = {i: {c: ops_[i][0].count(c) for c in ops_[i][0]}
+                  for i in (0, 1)}
+        for i in (1, 0):
+            own = ops_[i][0]
+            drop(i, [d for d, c in enumerate(own)
+                     if c not in out and counts[i][c] == 1
+                     and c not in counts[1 - i]], "sum")
+        for i in (1, 0):
+            for c, count in counts[i].items():
+                if count < 2:
+                    continue
+                own, shape = ops_[i]
+                keep = c in out or c in ops_[1 - i][0]
+                self.steps[i].append(("diagonal", (own, c, keep)))
+                first = [d for d, x in enumerate(own) if x == c]
+                gone = first if not keep else first[:-1]
+                ops_[i] = ("".join(x for d, x in enumerate(own)
+                                   if d not in gone),
+                           tuple(x for d, x in enumerate(shape)
+                                 if d not in gone))
+        (ln, ls), (rn, rs) = ops_[1], ops_[0]
         contracted = sorted(c for c in set(ln) | set(rn) if c not in out)
         batch = [c for c in out if c in ln and c in rn]
         gone = set(batch) | set(contracted)
@@ -549,39 +641,29 @@ class _EinsumDims:
         if not self.swap:
             (ln, ls, l_rest), (rn, rs, r_rest) = ((rn, rs, r_rest),
                                                   (ln, ls, l_rest))
-        size = dict(zip(ln, ls))
-        size.update(zip(rn, rs))
-        self.lhs_shape, self.rhs_shape = ls, rs
-        self.lperm = [ln.index(c) for c in batch + l_rest + contracted]
-        self.rperm = [rn.index(c) for c in batch + contracted + r_rest]
-        self.batch_shape = tuple(size[c] for c in batch)
-        self.m_shape = tuple(size[c] for c in l_rest)
-        self.n_shape = tuple(size[c] for c in r_rest)
-        self.B = math.prod(self.batch_shape)
-        self.M = math.prod(self.m_shape)
-        self.K = math.prod(size[c] for c in contracted)
-        self.N = math.prod(self.n_shape)
         got = batch + l_rest + r_rest
-        self.out_perm = [got.index(c) for c in out]
+        super().__init__(
+            ls, rs, (tuple(ln.index(c) for c in contracted),
+                     tuple(rn.index(c) for c in contracted)),
+            (tuple(ln.index(c) for c in batch),
+             tuple(rn.index(c) for c in batch)),
+            out_perm=[got.index(c) for c in out])
+
+    def _reduce(self, x, i):
+        """Operand ``i`` as the ``dot_general`` takes it."""
+        for kind, arg in self.steps[i]:
+            if kind == "squeeze":
+                for d in reversed(arg):
+                    x = x.squeeze(d)
+            elif kind == "sum":
+                x = x.sum(dim=arg)
+            else:
+                x = _diagonal(x, *arg)
+        return x
 
     def pack(self, a, b):
-        for d in reversed(self.squeeze[0]):
-            a = a.squeeze(d)
-        for d in reversed(self.squeeze[1]):
-            b = b.squeeze(d)
-        if self.sums[0]:
-            a = a.sum(dim=self.sums[0])
-        if self.sums[1]:
-            b = b.sum(dim=self.sums[1])
-        if self.swap:
-            a, b = b, a
-        a3 = a.permute(*self.lperm).reshape(self.B, self.M, self.K)
-        b3 = b.permute(*self.rperm).reshape(self.B, self.K, self.N)
-        return a3, b3
-
-    def unpack(self, y3):
-        y = y3.reshape(self.batch_shape + self.m_shape + self.n_shape)
-        return y.permute(*self.out_perm)
+        a, b = self._reduce(a, 0), self._reduce(b, 1)
+        return super().pack(*((b, a) if self.swap else (a, b)))
 
 
 def _flop_count(indices, inner: bool, terms: int, size) -> int:
@@ -638,8 +720,67 @@ def _ssa_to_linear(ssa_path) -> list:
     return path
 
 
+_SYMBOLS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
+
+
+def _symbol(i: int) -> str:
+    """opt_einsum's ``get_symbol``: the 52 letters, then unicode."""
+    if i < 52:
+        return _SYMBOLS[i]
+    return chr(i + 2048) if i >= 55296 else chr(i + 140)
+
+
+def _parse_einsum(equation: str, shapes):
+    """opt_einsum's ``parse_einsum_input``, which ``jnp.einsum`` reads
+    its equation with: each ``...`` becomes the last of as many unused
+    symbols as the largest rank (right-aligned, so they broadcast as
+    numpy does), and an implicit output is the ellipsis' symbols, then
+    the indices that appear once, sorted.  Returns (input names, output
+    names)."""
+    eq = equation.replace(" ", "")
+    inputs, arrow, out = eq.partition("->")
+    names = inputs.split(",")
+    if len(names) != len(shapes):
+        raise ValueError(f"einsum {equation!r}: {len(names)} subscripts "
+                         f"for {len(shapes)} operands")
+    if "." in eq:
+        used = set(eq) - set(".,->")
+        fresh, i = [], 0
+        while len(fresh) < max(len(sh) for sh in shapes):
+            if _symbol(i) not in used:
+                fresh.append(_symbol(i))
+            i += 1
+        longest = 0
+        for num, (sub, shape) in enumerate(zip(names, shapes)):
+            if "." not in sub:
+                continue
+            if sub.count(".") != 3 or sub.count("...") != 1:
+                raise ValueError(f"einsum {equation!r}: invalid ellipsis")
+            count = max(len(shape), 1) - (len(sub) - 3) if shape else 0
+            if count < 0:
+                raise ValueError(f"einsum {equation!r}: ellipsis lengths "
+                                 "do not match")
+            longest = max(longest, count)
+            names[num] = sub.replace("...", "".join(fresh[len(fresh)
+                                                          - count:])
+                                     if count else "")
+        ell = "".join(fresh[len(fresh) - longest:]) if longest else ""
+        if arrow:
+            out = out.replace("...", ell)
+        else:
+            joined = "".join(names)
+            out = ell + "".join(sorted(c for c in set(joined) - set(ell)
+                                       if joined.count(c) == 1))
+    elif not arrow:
+        joined = "".join(names)
+        out = "".join(sorted(c for c in set(joined)
+                             if joined.count(c) == 1))
+    return names, out
+
+
 def _einsum_steps(equation: str, shapes) -> list:
-    """``jnp.einsum``'s pairwise contractions of an explicit equation.
+    """``jnp.einsum``'s pairwise contractions of an equation, read as
+    :func:`_parse_einsum` reads it.
 
     Each step pops two list positions (the higher first), as
     opt_einsum's ``contract_path`` does, and appends their result; it
@@ -650,19 +791,10 @@ def _einsum_steps(equation: str, shapes) -> list:
     indices follow their first appearance in the pair, the last step's
     are the output's.
     """
-    eq = equation.replace(" ", "")
-    if "..." in eq or "->" not in eq:
-        raise NotImplementedError(
-            f"einsum {equation!r}: offload handles explicit equations "
-            "without an ellipsis")
-    inputs, out = eq.split("->")
-    names = inputs.split(",")
-    if len(names) != len(shapes) \
-            or any(len(n) != len(set(n)) for n in names) \
-            or any(len(n) != len(sh) for n, sh in zip(names, shapes)):
-        raise NotImplementedError(
-            f"einsum {equation!r}: offload handles operands without "
-            "repeated indices")
+    names, out = _parse_einsum(equation, shapes)
+    if any(len(n) != len(sh) for n, sh in zip(names, shapes)):
+        raise ValueError(f"einsum {equation!r}: subscripts do not match "
+                         f"the operands' ranks {[len(sh) for sh in shapes]}")
     size = {}
     for n, shape in zip(names, shapes):
         for c, d in zip(n, shape):
@@ -888,29 +1020,131 @@ def spmd_mesh():
 
 
 class _Call:
-    """One caught call: its matmul operands and how to finish it, or an
-    einsum's equation and operands."""
+    """One caught call: its matmul operands, their lowering (``dims``,
+    None for ``jnp.matmul``'s) and how to finish it, or an einsum's
+    equation and operands."""
 
     def __init__(self, lhs, rhs, finish=None, equation=None,
-                 operands=()):
+                 operands=(), dims=None):
         self.lhs, self.rhs = lhs, rhs
         self.finish = finish or (lambda prod: prod)
         self.equation = equation    # set for an einsum
         self.operands = operands
+        self.dims = dims
 
 
-def _addmm_finish(inp, beta, alpha):
+def _addmm_finish(inp, beta, alpha, inplace=False):
+    """``beta * inp + alpha * prod``, written into ``inp`` for the
+    in-place forms.  At ``beta == 0`` ``inp`` is not read, as torch
+    does: NaN and Inf in it do not reach the result."""
     def finish(prod):
-        if beta == 1 and alpha == 1:
-            return prod + inp
-        return beta * inp + alpha * prod
+        if beta == 0:
+            out = prod if alpha == 1 else alpha * prod
+        elif beta == 1 and alpha == 1:
+            out = prod + inp
+        else:
+            out = beta * inp + alpha * prod
+        return inp.copy_(out) if inplace else out
     return finish
+
+
+def _conj(x):
+    """``jnp.conj`` as ``jnp.vdot`` applies it: complex operands only."""
+    return torch.conj_physical(x) if x.is_complex() else x
+
+
+def _tensordot_dims(a, b, dims) -> _DotGeneralDims | None:
+    """``jnp.tensordot``'s dimension numbers for torch's ``dims``: an
+    int contracts ``a``'s last axes with ``b``'s first, a pair of ints
+    or of sequences names them."""
+    if isinstance(dims, torch.Tensor):
+        dims = dims.tolist()
+    if isinstance(dims, int):
+        lc, rc = range(a.ndim - dims, a.ndim), range(dims)
+    elif isinstance(dims, (list, tuple)) and len(dims) == 2:
+        lc, rc = ([d] if isinstance(d, int) else list(d) for d in dims)
+        if len(lc) != len(rc):
+            return None
+    else:
+        return None
+    lc = tuple(d % a.ndim for d in lc)
+    rc = tuple(d % b.ndim for d in rc)
+    return _DotGeneralDims(a.shape, b.shape, (lc, rc))
+
+
+def _vecdot_call(x, y, dim) -> _Call:
+    """``jnp.linalg.vecdot``: the vector axis moved last, ``x``
+    conjugated, and ``jnp.vectorize``'s batching of ``vdot``: size-1
+    loop axes squeezed, a loop axis both operands have a batch axis of
+    the ``dot_general``, one only one has a free axis of that operand,
+    the output in the broadcast loop order."""
+    x, y = _conj(x.movedim(dim, -1)), y.movedim(dim, -1)
+    xl, yl = tuple(x.shape[:-1]), tuple(y.shape[:-1])
+    shape = torch.broadcast_shapes(xl, yl)
+    fill = len(shape)
+    xs = (1,) * (fill - len(xl)) + xl
+    ys = (1,) * (fill - len(yl)) + yl
+    x = x.reshape(tuple(d for d in xl if d != 1) + x.shape[-1:])
+    y = y.reshape(tuple(d for d in yl if d != 1) + y.shape[-1:])
+
+    def axis(sizes, p):   # position p's axis in the squeezed operand
+        return sum(1 for q in range(p) if sizes[q] != 1)
+
+    batch = [p for p in range(fill) if xs[p] != 1 and ys[p] != 1]
+    lfree = [p for p in range(fill) if xs[p] != 1 and ys[p] == 1]
+    rfree = [p for p in range(fill) if xs[p] == 1 and ys[p] != 1]
+    order = batch + lfree + rfree
+    dims = _DotGeneralDims(
+        x.shape, y.shape, ((x.ndim - 1,), (y.ndim - 1,)),
+        (tuple(axis(xs, p) for p in batch),
+         tuple(axis(ys, p) for p in batch)),
+        out_perm=sorted(range(len(order)), key=order.__getitem__),
+        out_shape=shape)
+    return _Call(x, y, dims=dims)
+
+
+def _chain_call(mats) -> _Call | None:
+    """``jnp.linalg.multi_dot``: one einsum over the chain, a 1-D first
+    or last operand keeping only its inner index, so the order is
+    ``jnp.einsum``'s."""
+    if len(mats) < 2 or not all(isinstance(t, torch.Tensor) for t in mats):
+        return None
+    axes = [[i, i + 1] for i in range(len(mats))]
+    if mats[0].ndim == 1:
+        axes[0] = axes[0][1:]
+    if mats[-1].ndim == 1:
+        axes[-1] = axes[-1][:1]
+    labels = sorted({i for ax in axes for i in ax})
+    sym = {i: _symbol(n) for n, i in enumerate(labels)}
+    names = ["".join(sym[i] for i in ax) for ax in axes]
+    joined = "".join(names)
+    out = "".join(sorted(c for c in set(joined) if joined.count(c) == 1))
+    return _Call(None, None, equation=",".join(names) + "->" + out,
+                 operands=tuple(mats))
+
+
+#: torch's matmul entry points whose ``jnp`` counterpart is
+#: ``jnp.matmul``: two operands, no options.
+_MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
+            torch.linalg.matmul, torch.mm, torch.Tensor.mm, torch.bmm,
+            torch.Tensor.bmm, torch.mv, torch.Tensor.mv, torch.dot,
+            torch.Tensor.dot)
+#: ``input + mat1 @ mat2`` forms: (function, in place, lowered as
+#: ``addbmm``'s einsum).
+_ADDS = {torch.addmm: False, torch.Tensor.addmm: False,
+         torch.Tensor.addmm_: True, torch.addmv: False,
+         torch.Tensor.addmv: False, torch.Tensor.addmv_: True,
+         torch.baddbmm: False, torch.Tensor.baddbmm: False,
+         torch.Tensor.baddbmm_: True, torch.addbmm: False,
+         torch.Tensor.addbmm: False, torch.Tensor.addbmm_: True}
+_ADDBMMS = (torch.addbmm, torch.Tensor.addbmm, torch.Tensor.addbmm_)
 
 
 def _parse_call(func, args, kwargs):
     """The matmul operands of a caught call, or None to run it natively."""
     if kwargs.get("out") is not None:
         return None
+    kwargs = {key: val for key, val in kwargs.items() if key != "out"}
     if func is torch.einsum:
         if kwargs or not args or not isinstance(args[0], str):
             return None
@@ -920,19 +1154,50 @@ def _parse_call(func, args, kwargs):
         if len(ops_) < 2:
             return None
         return _Call(None, None, equation=args[0], operands=ops_)
-    if func in (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__,
-                torch.mm, torch.Tensor.mm, torch.bmm, torch.Tensor.bmm):
+    if func in _MATMULS:
         if len(args) != 2 or kwargs:
             return None
         return _Call(args[0], args[1])
     if func is torch.Tensor.__rmatmul__:
         return _Call(args[1], args[0]) if len(args) == 2 else None
-    if func in (torch.addmm, torch.Tensor.addmm):
+    if func in (torch.vdot, torch.Tensor.vdot):
+        if len(args) != 2 or kwargs:
+            return None
+        return _Call(_conj(args[0]).reshape(-1), args[1].reshape(-1))
+    if func in (torch.inner, torch.Tensor.inner):
+        if len(args) != 2 or kwargs or min(args[0].ndim, args[1].ndim) < 1:
+            return None
+        a, b = args
+        return _Call(a, b, dims=_DotGeneralDims(
+            a.shape, b.shape, ((a.ndim - 1,), (b.ndim - 1,))))
+    if func is torch.tensordot:
+        if len(args) < 2 or set(kwargs) - {"dims"}:
+            return None
+        a, b = args[:2]
+        dims = _tensordot_dims(a, b, args[2] if len(args) > 2
+                               else kwargs.get("dims", 2))
+        return None if dims is None else _Call(a, b, dims=dims)
+    if func is torch.linalg.vecdot:
+        if len(args) != 2 or set(kwargs) - {"dim"}:
+            return None
+        return _vecdot_call(*args, kwargs.get("dim", -1))
+    if func is torch.linalg.multi_dot:
+        if len(args) != 1 or kwargs:
+            return None
+        return _chain_call(list(args[0]))
+    if func is torch.chain_matmul:
+        mats = list(args[0]) if len(args) == 1 and isinstance(
+            args[0], (list, tuple)) else list(args)
+        return None if kwargs else _chain_call(mats)
+    if func in _ADDS:
         if len(args) != 3 or set(kwargs) - {"beta", "alpha"}:
             return None
         inp, m1, m2 = args
-        return _Call(m1, m2, _addmm_finish(inp, kwargs.get("beta", 1),
-                                           kwargs.get("alpha", 1)))
+        finish = _addmm_finish(inp, kwargs.get("beta", 1),
+                               kwargs.get("alpha", 1), _ADDS[func])
+        dims = (_EinsumDims("bij,bjk->ik", m1.shape, m2.shape)
+                if func in _ADDBMMS else None)
+        return _Call(m1, m2, finish, dims=dims)
     if func is F.linear:
         inp = args[0] if args else kwargs.get("input")
         weight = args[1] if len(args) > 1 else kwargs.get("weight")
@@ -1588,9 +1853,9 @@ class _OffloadMode(TorchFunctionMode):
             return func(*args, **kwargs)
         if call.equation is not None:
             return self._einsum(call.equation, call.operands)
-        return self._product(call.lhs, call.rhs,
-                             _MatmulDims(call.lhs.shape, call.rhs.shape),
-                             call.finish, lambda: func(*args, **kwargs))
+        return self._product(call.lhs, call.rhs, call.dims or _MatmulDims(
+            call.lhs.shape, call.rhs.shape), call.finish,
+            lambda: func(*args, **kwargs))
 
     def _einsum(self, equation: str, operands):
         """An einsum as ``jnp.einsum`` runs it: pairwise contractions,

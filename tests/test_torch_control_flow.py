@@ -392,8 +392,19 @@ class TestNamesAgainstReference:
         assert port == ref
 
     def test_unsupported_einsums_still_raise(self):
-        a = torch.ones(4, 4)
-        pol = PrecisionPolicy(min_dim=1)
+        """The name is kept from when these equations raised
+        NotImplementedError; the test now holds each three-operand
+        equation with a repeated index, an ellipsis or an implicit
+        output to the reference's site records and bits."""
+        a = _arr((4, 4), 45)
+        kw = dict(default_splits=6, min_dim=1, backend="fp64_int8_6")
         for eq in ("ii,ij,jk->k", "...i,ij,jk->...k", "ij,jk,kl"):
-            with pytest.raises(NotImplementedError):
-                site_report(lambda x: torch.einsum(eq, x, x, x), pol)(a)
+            ref, port = _both(lambda x: jnp.einsum(eq, x, x, x),
+                              lambda x: torch.einsum(eq, x, x, x), [a],
+                              **kw)
+            assert port == ref, eq
+            want = offload_ref(lambda x: jnp.einsum(eq, x, x, x),
+                               PolicyRef(**kw))(jnp.asarray(a))
+            got = offload(lambda x: torch.einsum(eq, x, x, x),
+                          PrecisionPolicy(**kw))(torch.from_numpy(a))
+            assert same_bits(want, got), eq

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch, and no line of
-chip_smoke.py or tools/serve_ab.py, imports jax or the reference
-package ``repro``."""
+chip_smoke.py, tools/serve_ab.py or the port's examples
+(examples/torch_*.py), imports jax or the reference package ``repro``."""
 
 import ast
 import pathlib
@@ -11,6 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+EXAMPLE_FILES = sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -30,8 +31,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize(
-    "path", PORT_FILES + [ROOT / "chip_smoke.py",
-                          ROOT / "tools" / "serve_ab.py"],
+    "path", PORT_FILES + EXAMPLE_FILES + [ROOT / "chip_smoke.py",
+                                          ROOT / "tools" / "serve_ab.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
@@ -47,10 +48,14 @@ def test_import_graph_has_no_jax_or_reference():
         "import repro_torch, repro_torch.core, repro_torch.kernels, "
         "repro_torch.apps, repro_torch.configs, repro_torch.models, "
         "repro_torch.serve, repro_torch.train, repro_torch.launch.train, "
+        "repro_torch.launch.serve, "
         "repro_torch.tune, repro_torch.obs, repro_torch.obs.cli, "
         "repro_torch.analysis, repro_torch.shard, repro_torch.shard.launch\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, "
         "run_name='not_main')\n"
+        f"sys.path.insert(0, {str(ROOT / 'examples')!r})\n"
+        + "".join(f"runpy.run_path({str(p)!r}, run_name='not_main')\n"
+                  for p in EXAMPLE_FILES) +
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n")

@@ -331,15 +331,308 @@ class TestEinsumSites:
         assert same_bits(r, t)
 
     def test_unsupported_forms_raise(self):
-        a = torch.ones(4, 4)
-        pol = PrecisionPolicy(min_dim=1)
-        with pytest.raises(NotImplementedError):
-            site_report(lambda x: torch.einsum("ii,ij->j", x, x), pol)(a)
-        with pytest.raises(NotImplementedError):
-            site_report(lambda x: torch.einsum("...i,ij->...j", x, x),
-                        pol)(a)
+        """The name is kept from when these equations raised
+        NotImplementedError; the test now holds each to the reference:
+        the same site records and the same bits."""
+        a = _arr((4, 4), 42)
+        pol_ref, pol = _policies(min_dim=1, backend="fp64_int8_6")
+        for eq in ("ii,ij->j", "...i,ij->...j"):
+            r = site_report_ref(lambda x: jnp.einsum(eq, x, x), pol_ref)(
+                jnp.asarray(a))
+            t = site_report(lambda x: torch.einsum(eq, x, x), pol)(
+                torch.from_numpy(a))
+            assert [_record(s) for s in t] == [_record(s) for s in r], eq
+            assert same_bits(
+                offload_ref(lambda x: jnp.einsum(eq, x, x), pol_ref)(
+                    jnp.asarray(a)),
+                offload(lambda x: torch.einsum(eq, x, x), pol)(
+                    torch.from_numpy(a))), eq
         # One operand is not a matmul: no site, runs natively.
-        assert site_report(lambda x: torch.einsum("ij->j", x), pol)(a) == []
+        assert site_report(lambda x: torch.einsum("ij->j", x), pol)(
+            torch.from_numpy(a)) == []
+
+
+# Every torch entry point whose jnp counterpart lowers to dot_general,
+# beside that counterpart: (id, jnp program, torch program, operand
+# shapes).  The vector forms' sites have m or n = 1.
+_ENTRY_POINTS = [
+    ("tensordot-int", lambda a, b: jnp.tensordot(a, b, 1),
+     lambda a, b: torch.tensordot(a, b, 1), [(64, 40), (40, 48)]),
+    ("tensordot-2", lambda a, b: jnp.tensordot(a, b, 2),
+     lambda a, b: torch.tensordot(a, b), [(36, 8, 40), (8, 40, 48)]),
+    ("tensordot-pair", lambda a, b: jnp.tensordot(a, b, ([0, 2], [2, 1])),
+     lambda a, b: torch.tensordot(a, b, dims=([0, 2], [2, 1])),
+     [(4, 64, 40), (48, 40, 4)]),
+    ("tensordot-ints", lambda a, b: jnp.tensordot(a, b, (1, 0)),
+     lambda a, b: torch.tensordot(a, b, dims=([1], [0])),
+     [(64, 40), (40, 48)]),
+    ("linalg.matmul", jnp.linalg.matmul, torch.linalg.matmul,
+     [(2, 64, 40), (40, 48)]),
+    ("inner", jnp.inner, torch.inner, [(64, 40), (48, 40)]),
+    ("Tensor.inner", jnp.inner, torch.Tensor.inner,
+     [(3, 64, 40), (48, 40)]),
+    ("multi_dot-3", lambda *m: jnp.linalg.multi_dot(m),
+     lambda *m: torch.linalg.multi_dot(m), [(64, 40), (40, 96), (96, 48)]),
+    ("multi_dot-tie", lambda *m: jnp.linalg.multi_dot(m),
+     lambda *m: torch.linalg.multi_dot(m), [(64, 64)] * 3),
+    ("multi_dot-4", lambda *m: jnp.linalg.multi_dot(m),
+     lambda *m: torch.linalg.multi_dot(m),
+     [(64, 40), (40, 50), (50, 64), (64, 33)]),
+    ("multi_dot-1d", lambda *m: jnp.linalg.multi_dot(m),
+     lambda *m: torch.linalg.multi_dot(m), [(64,), (64, 40), (40, 48)]),
+    ("chain_matmul", lambda *m: jnp.linalg.multi_dot(m),
+     torch.chain_matmul, [(64, 40), (40, 96), (96, 48)]),
+    ("baddbmm", lambda x, a, b: x + a @ b, torch.baddbmm,
+     [(3, 64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("baddbmm-beta-alpha", lambda x, a, b: 0.5 * x + 2.0 * (a @ b),
+     lambda x, a, b: torch.baddbmm(x, a, b, beta=0.5, alpha=2.0),
+     [(3, 64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("addbmm", lambda x, a, b: x + jnp.einsum("bij,bjk->ik", a, b),
+     torch.addbmm, [(64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("Tensor.addbmm", lambda x, a, b: x + jnp.einsum("bij,bjk->ik", a, b),
+     torch.Tensor.addbmm, [(64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("addmv", lambda x, a, v: x + a @ v, torch.addmv,
+     [(64,), (64, 40), (40,)]),
+    ("mv", lambda a, v: a @ v, torch.mv, [(64, 40), (40,)]),
+    ("Tensor.mv", lambda a, v: a @ v, torch.Tensor.mv, [(64, 40), (40,)]),
+    ("dot", jnp.dot, torch.dot, [(64,), (64,)]),
+    ("vdot", jnp.vdot, torch.vdot, [(64,), (64,)]),
+    ("vecdot", jnp.linalg.vecdot, torch.linalg.vecdot, [(40, 64), (40, 64)]),
+    ("vecdot-1d", jnp.linalg.vecdot, torch.linalg.vecdot, [(64,), (64,)]),
+    ("vecdot-broadcast", jnp.linalg.vecdot, torch.linalg.vecdot,
+     [(4, 40, 64), (40, 64)]),
+    ("vecdot-squeeze", jnp.linalg.vecdot, torch.linalg.vecdot,
+     [(3, 1, 5, 64), (4, 5, 64)]),
+    ("vecdot-dim", lambda a, b: jnp.linalg.vecdot(a, b, axis=1),
+     lambda a, b: torch.linalg.vecdot(a, b, dim=1),
+     [(3, 64, 5), (1, 64, 5)]),
+]
+
+# The in-place forms: (id, jnp program, method, operand shapes).
+_IN_PLACE = [
+    ("addmm_", lambda x, a, b: x + a @ b, torch.Tensor.addmm_,
+     [(64, 48), (64, 40), (40, 48)]),
+    ("baddbmm_", lambda x, a, b: x + a @ b, torch.Tensor.baddbmm_,
+     [(3, 64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("addbmm_", lambda x, a, b: x + jnp.einsum("bij,bjk->ik", a, b),
+     torch.Tensor.addbmm_, [(64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("addmv_", lambda x, a, v: x + a @ v, torch.Tensor.addmv_,
+     [(64,), (64, 40), (40,)]),
+]
+
+def _mm(a, b):
+    return a @ b
+
+
+def _bmm_sum(a, b):
+    return jnp.einsum("bij,bjk->ik", a, b)
+
+
+# Every add form: (id, function, in place, its jnp product, shapes of
+# input, mat1, mat2).
+_ADD_FORMS = [
+    ("addmm", torch.addmm, False, _mm, [(64, 48), (64, 40), (40, 48)]),
+    ("Tensor.addmm", torch.Tensor.addmm, False, _mm,
+     [(64, 48), (64, 40), (40, 48)]),
+    ("addmm_", torch.Tensor.addmm_, True, _mm,
+     [(64, 48), (64, 40), (40, 48)]),
+    ("addmv", torch.addmv, False, _mm, [(64,), (64, 40), (40,)]),
+    ("Tensor.addmv", torch.Tensor.addmv, False, _mm,
+     [(64,), (64, 40), (40,)]),
+    ("addmv_", torch.Tensor.addmv_, True, _mm, [(64,), (64, 40), (40,)]),
+    ("baddbmm", torch.baddbmm, False, _mm,
+     [(3, 64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("Tensor.baddbmm", torch.Tensor.baddbmm, False, _mm,
+     [(3, 64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("baddbmm_", torch.Tensor.baddbmm_, True, _mm,
+     [(3, 64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("addbmm", torch.addbmm, False, _bmm_sum,
+     [(64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("Tensor.addbmm", torch.Tensor.addbmm, False, _bmm_sum,
+     [(64, 48), (3, 64, 40), (3, 40, 48)]),
+    ("addbmm_", torch.Tensor.addbmm_, True, _bmm_sum,
+     [(64, 48), (3, 64, 40), (3, 40, 48)]),
+]
+
+# The einsum forms jnp.einsum reads with opt_einsum's parser: ellipses,
+# implicit outputs and indices repeated within an operand.
+_EINSUM_FORMS = [
+    ("...ij,...jk->...ik", [(4, 64, 40), (4, 40, 48)]),
+    ("...ij,jk->...ik", [(2, 3, 64, 40), (40, 48)]),
+    ("...ij,...jk", [(4, 64, 40), (1, 40, 48)]),
+    ("bij,bjk", [(4, 64, 40), (4, 40, 48)]),
+    ("ij,jk,kl", [(64, 40), (40, 96), (96, 48)]),
+    ("bii,bij->bj", [(4, 64, 64), (4, 64, 48)]),
+    ("iik,kj->ij", [(64, 64, 40), (40, 48)]),
+    ("kii,kj->ij", [(40, 64, 64), (40, 48)]),
+    ("iij,jk->k", [(8, 8, 64), (64, 48)]),
+]
+
+
+def _same_values(ref, port):
+    if isinstance(ref, tuple):
+        return all(same_bits(r, t) for r, t in zip(ref, port))
+    return same_bits(ref, port)
+
+
+def _parity(f_jax, f_torch, shapes, seed, **kw):
+    """Site records (each the reference's?) and offloaded values
+    (bitwise?) of the two programs on the same seeded operands."""
+    args = [_arr(shape, seed + i) for i, shape in enumerate(shapes)]
+    p_ref, p_port = _policies(backend="fp64_int8_6", **kw)
+    r = site_report_ref(f_jax, p_ref)(*map(jnp.asarray, args))
+    t = site_report(f_torch, p_port)(*map(torch.from_numpy, args))
+    want = offload_ref(f_jax, p_ref)(*map(jnp.asarray, args))
+    got = offload(f_torch, p_port)(*map(torch.from_numpy, args))
+    return [_record(s) for s in t], [_record(s) for s in r], want, got
+
+
+class TestEntryPoints:
+    """F6: every entry point is a site, or a chain of sites, with the
+    reference's records; offloaded, the values are the reference's
+    bits."""
+
+    @pytest.mark.parametrize("case", _ENTRY_POINTS, ids=lambda c: c[0])
+    def test_gated_sites_match_reference(self, case):
+        _, f_jax, f_torch, shapes = case
+        got, want, r, t = _parity(f_jax, f_torch, shapes, 50, min_dim=32)
+        assert got == want
+        assert len(got) >= 1
+        np.testing.assert_allclose(np.asarray(r), np.asarray(t),
+                                   rtol=1e-10, atol=1e-10)
+
+    @pytest.mark.parametrize("case", _ENTRY_POINTS, ids=lambda c: c[0])
+    def test_offloaded_sites_bitwise(self, case):
+        _, f_jax, f_torch, shapes = case
+        got, want, r, t = _parity(f_jax, f_torch, shapes, 60, min_dim=1)
+        assert got == want
+        assert all(rec[3] for rec in got)   # every site offloaded
+        assert same_bits(r, t)
+
+    @pytest.mark.parametrize("case", _IN_PLACE, ids=lambda c: c[0])
+    def test_in_place_forms_write_self(self, case):
+        _, f_jax, method, shapes = case
+        args = [_arr(shape, 70 + i) for i, shape in enumerate(shapes)]
+        p_ref, p_port = _policies(backend="fp64_int8_6", min_dim=1)
+        r = site_report_ref(f_jax, p_ref)(*map(jnp.asarray, args))
+        # Copies: jnp.asarray may share the numpy buffer, and the
+        # reference's asynchronous dispatch must not read self written.
+        x, *ops = (torch.from_numpy(a.copy()) for a in args)
+        t = site_report(lambda x, *o: method(x.clone(), *o), p_port)(x, *ops)
+        assert [_record(s) for s in t] == [_record(s) for s in r]
+        want = offload_ref(f_jax, p_ref)(*map(jnp.asarray, args))
+        out = offload(method, p_port)(x, *ops)
+        assert out is x
+        assert same_bits(want, x)
+
+    @pytest.mark.parametrize("alpha", [1.0, 2.0])
+    @pytest.mark.parametrize("case", _ADD_FORMS, ids=lambda c: c[0])
+    def test_beta_zero_ignores_input(self, case, alpha):
+        # torch reads no input at beta=0 (attention's baddbmm on an
+        # empty buffer): a NaN-filled one gives the native result, and
+        # the bits of the reference's alpha * (mat1 @ mat2).
+        _, fn, in_place, prod, shapes = case
+        a, b = (_arr(shape, 76 + i) for i, shape in enumerate(shapes[1:]))
+        p_ref, p_port = _policies(backend="fp64_int8_6", min_dim=1)
+
+        def f_jax(a, b):
+            return alpha * prod(a, b)
+
+        def f_torch(x, a, b):
+            return fn(x, a, b, beta=0, alpha=alpha)
+
+        x, ta, tb = (torch.from_numpy(np.full(shapes[0], np.nan)),
+                     torch.from_numpy(a), torch.from_numpy(b))
+        r = site_report_ref(f_jax, p_ref)(jnp.asarray(a), jnp.asarray(b))
+        t = site_report(lambda x, a, b: f_torch(x.clone(), a, b),
+                        p_port)(x, ta, tb)
+        assert [_record(s) for s in t] == [_record(s) for s in r]
+        native = f_torch(x.clone(), ta, tb)
+        assert torch.isfinite(native).all()
+        want = offload_ref(f_jax, p_ref)(jnp.asarray(a), jnp.asarray(b))
+        out = offload(f_torch, p_port)(x, ta, tb)
+        assert (out is x) == in_place
+        assert same_bits(want, out)
+        # Six int8 slices: the emulation's error, not the input's NaN.
+        np.testing.assert_allclose(out.numpy(), native.numpy(), rtol=0,
+                                   atol=1e-6 * native.abs().max().item())
+
+    def test_gated_mv_shifts_the_next_name(self):
+        a, v, b = _arr((64, 40), 80), _arr((40,), 81), _arr((40, 48), 82)
+        p_ref, p_port = _policies(backend="fp64_int8_6", min_dim=32)
+        r = site_report_ref(lambda a, v, b: (a @ v, a @ b), p_ref)(
+            *map(jnp.asarray, (a, v, b)))
+        t = site_report(lambda a, v, b: (torch.mv(a, v), a @ b), p_port)(
+            *map(torch.from_numpy, (a, v, b)))
+        assert [_record(s) for s in t] == [_record(s) for s in r]
+        assert [(s.name, s.offloaded) for s in t] == [("dot0", False),
+                                                      ("dot1", True)]
+
+    @pytest.mark.parametrize("fn", [torch.outer, torch.kron])
+    def test_products_without_dot_general_have_no_site(self, fn):
+        a = torch.from_numpy(_arr((64,), 83))
+        assert site_report(fn, PrecisionPolicy(min_dim=1))(a, a) == []
+
+    def test_out_argument_runs_natively(self):
+        a = torch.from_numpy(_arr((64, 64), 84))
+        out = torch.empty(64, 64, dtype=torch.float64)
+        sites = site_report(lambda a: torch.tensordot(a, a, 1, out=out),
+                            PrecisionPolicy(min_dim=1))(a)
+        assert sites == []
+
+    def test_gradient_through_tensordot_matches_reference(self):
+        a, b = _arr((64, 40), 85), _arr((40, 48), 86)
+        p_ref, p_port = _policies(backend="fp64_int8_6", min_dim=32)
+
+        def f_jax(a, b):
+            return jax.grad(lambda a, b: jnp.sum(jnp.tanh(
+                jnp.tensordot(a, b, 1))), argnums=(0, 1))(a, b)
+
+        def f_torch(a, b):
+            a, b = a.requires_grad_(), b.requires_grad_()
+            with torch.enable_grad():
+                loss = torch.tanh(torch.tensordot(a, b, 1)).sum()
+                return torch.autograd.grad(loss, (a, b))
+
+        want = offload_ref(f_jax, p_ref)
+        got = offload(f_torch, p_port)
+        ja, jb = jnp.asarray(a), jnp.asarray(b)
+        assert [_record(s) for s in got.sites(torch.from_numpy(a),
+                                              torch.from_numpy(b))] == \
+            [_record(s) for s in want.sites(ja, jb)]
+        assert _same_values(want(ja, jb), got(torch.from_numpy(a),
+                                              torch.from_numpy(b)))
+
+
+class TestEinsumForms:
+    """F7: the forms ``offload`` once refused, lowered as ``jnp.einsum``
+    lowers them."""
+
+    @pytest.mark.parametrize("eq,shapes", _EINSUM_FORMS)
+    @pytest.mark.parametrize("min_dim", [32, 1])
+    def test_sites_and_values_match_reference(self, eq, shapes, min_dim):
+        got, want, r, t = _parity(
+            lambda *x: jnp.einsum(eq, *x), lambda *x: torch.einsum(eq, *x),
+            shapes, 90, min_dim=min_dim)
+        assert got == want
+        if all(rec[3] for rec in got):
+            assert same_bits(r, t)
+        else:
+            np.testing.assert_allclose(np.asarray(r), np.asarray(t),
+                                       rtol=1e-10, atol=1e-10)
+
+    def test_issue_forms_records(self):
+        # The three equations at 64-wide operands: one site each, the
+        # diagonal's gated by min_dim.
+        pol = PrecisionPolicy(default_splits=6, min_dim=32)
+        b3 = torch.from_numpy(_arr((4, 64, 64), 95))
+        got = [[(s.name, s.offloaded, s.m, s.k, s.n, s.batch)
+                for s in site_report(lambda x, y: torch.einsum(eq, x, y),
+                                     pol)(b3, b3)]
+               for eq in ("...ij,...jk->...ik", "bij,bjk", "bii,bij->bj")]
+        assert got == [[("dot0", True, 64, 64, 64, 4)],
+                       [("dot0", True, 64, 256, 64, 1)],
+                       [("dot0", False, 1, 64, 64, 4)]]
 
 
 def _train_step_pair():
