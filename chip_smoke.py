@@ -68,6 +68,15 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    on every rank, equal to phase 6's up to any token whose phase-6
    top-2 logit gap is under ``SERVE_SHARD_MARGIN`` (exactly at dp=2),
    paged == dense, and each rank's tokens/s and peak memory printed;
+   then the tp-heavy corner (``phase_mesh_large``): reduced_100m (12
+   layers, d 1024, 16/8 heads, d_ff 2816, vocab 16384) at full width,
+   2 steps through ``pallas_int8_6`` on one device and at ``--mesh
+   dp=1,tp=8`` (8 ranks, 1 kv head each), K1 held bitwise at every new
+   shape of both, launches against ``site_exec`` and the site report,
+   the ranks' losses against the single device's, the 8-shard
+   checkpoint restored on one device bit-equal to each rank's final
+   parameters, and each rank's step-1 gradient under a drawn head
+   against the single device's, cut to its blocks;
 9. tunes it: calibrates the same train step through ``python -m
    repro_torch.tune``'s ``main`` (probe ``pallas_int8_6``, 2 batches),
    prints the solved split counts, holds K1 bitwise at every ((m, k,
@@ -123,8 +132,8 @@ kernels from ``src/repro_torch/kernels/csrc`` with nvcc, then:
    quickstart's ladder and the MuST study's gates;
 15. prints one JSON line describing every ported kernel (K1 once per
    timed shape, the plan's three most-launched pairs among them, the
-   entry points' and the CLI's wave shapes), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+   tp=8 ranks', the entry points' and the CLI's wave shapes), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Before the kernels it holds the seeded parameters (the reference's
 ``jax.random`` draws, ``repro_torch.models.prng``) card against CPU
@@ -1002,15 +1011,15 @@ RESUME_LAYERS = 8
 
 
 def train_argv(steps, ckpt_dir, backend="", overrides=None,
-               metrics_dir="none"):
-    """``launch.train``'s command line for the smoke: SmolLM-360M at
-    full width (``overrides``, config fields, shrink it for a
-    rehearsal), 4 x 128 tokens a step, lr 3e-3 (the trainer's
-    defaults), a checkpoint only at the end.  Telemetry is off unless
+               metrics_dir="none", arch="smollm_360m"):
+    """``launch.train``'s command line for the smoke: ``arch`` at full
+    width (``overrides``, config fields, shrink it for a rehearsal),
+    4 x 128 tokens a step, lr 3e-3 (the trainer's defaults), a
+    checkpoint only at the end.  Telemetry is off unless
     ``metrics_dir`` says otherwise (``""``: the trainer's default, on,
     into ``<ckpt_dir>/metrics``), so the timed runs measure the
     trainer without it."""
-    argv = ["--arch", "smollm_360m", "--steps", str(steps), "--seq-len",
+    argv = ["--arch", arch, "--steps", str(steps), "--seq-len",
             "128", "--global-batch", "4", "--lr", "3e-3", "--seed", "0",
             "--ckpt-dir", ckpt_dir, "--ckpt-every", "1000",
             "--log-every", "1", "--metrics-dir", metrics_dir]
@@ -1439,34 +1448,53 @@ def _sha256(tree):
             for x in tree_flatten(tree)]
 
 
-def _shard_grad_check(cfg, dev, policy):
-    """Step 1's gradient of a dp=2 rank, all-reduced over dp under
-    ``policy``; on rank 0, against the single-device emulated gradient
-    of the same seed and batch, worst leaf (max|diff| / max|reference|)."""
-    import torch.distributed as dist
+def _random_head(model, seed):
+    """Draw ``model``'s LM head (zero at init) from ``seed``: 0.1 times a
+    normal draw on the CPU, so every process gets the same bits."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        model.lm_head.copy_(0.1 * torch.randn(
+            model.lm_head.shape, generator=gen,
+            dtype=model.lm_head.dtype).to(model.lm_head.device))
 
+
+def _shard_grad_check(cfg, dev, policy, spec="dp=2", head_seed=None):
+    """Step 1's gradient of a rank of ``spec`` (its parameter blocks),
+    all-reduced over dp under ``policy``; on each rank of dp row 0,
+    against the single-device emulated gradient of the same seed and
+    batch cut to the rank's blocks, worst leaf (max|diff| /
+    max|reference|).  ``head_seed`` draws the LM head
+    (``_random_head``): under the zero head every layer's gradient is
+    zero."""
     from repro_torch.core import offload, spmd_scope
     from repro_torch.launch import train
     from repro_torch.models import Model
     from repro_torch.shard import reduce_gradients, shard_batch, \
-        train_mesh_setup
+        shard_state, train_mesh_setup, train_state_specs
     from repro_torch.train import checkpoint
 
     model = Model(cfg, device=dev, seed=0)
-    mesh, _, _, _ = train_mesh_setup("dp=2", 4, cfg)
+    if head_seed is not None:
+        _random_head(model, head_seed)
+    mesh, _, _, _ = train_mesh_setup(spec, 4, cfg)
+    dp, tp = mesh.shape["dp"], mesh.shape.get("tp", 1)
+    specs = train_state_specs(cfg)[0]
+    view = model.tp_view(mesh.groups["tp"]) if tp > 1 else model
     batch = _train_batch(cfg, 0).to(dev)
 
     def sharded_grads(params, rows):
         with spmd_scope(mesh):
-            _, grads = train.loss_and_grads(model, params, rows)
-            return reduce_gradients(grads, "dp", 2, mesh=mesh)
+            _, grads = train.loss_and_grads(view, params, rows)
+            return reduce_gradients(grads, "dp", dp, mesh=mesh)
 
-    got = offload(sharded_grads, policy)(model.params,
+    got = offload(sharded_grads, policy)(shard_state(model.params, specs,
+                                                     mesh),
                                          shard_batch(batch, mesh, "dp"))
-    if dist.get_rank():
+    if mesh.coords["dp"]:
         return None
     _, want = offload(train.loss_and_grads, policy)(model, model.params,
                                                     batch)
+    want = shard_state(want, specs, mesh)
     paths = checkpoint.tree_flatten(_leaf_names(model.params))
     rel = {}
     for name, g, w in zip(paths, checkpoint.tree_flatten(got),
@@ -1484,10 +1512,11 @@ def _leaf_names(node, prefix=""):
     return prefix[:-1]
 
 
-def _shard_rank(mesh_spec, overrides):
-    """One rank of the shard phase: (dp=2 only) the step-1 gradient
-    check, then ``launch.train.main`` with ``--mesh`` on this rank's
-    process group, its K1 launches and shapes counted."""
+def _shard_rank(mesh_spec, overrides, arch="smollm_360m"):
+    """One rank of the shard phase (or of the big-mesh phase, ``arch``):
+    (dp=2 only) the step-1 gradient check, then ``launch.train.main``
+    with ``--mesh`` on this rank's process group, its K1 launches and
+    shapes counted."""
     import torch.distributed as dist
 
     from repro_torch.core import PrecisionPolicy
@@ -1500,11 +1529,12 @@ def _shard_rank(mesh_spec, overrides):
     torch.backends.cudnn.allow_tf32 = False
     dev = rank_device("cuda")
     spec = f"pallas_int8_{TRAIN_SPLITS}"
-    model_cfg = _train_setup_cfg(overrides)
+    model_cfg = _train_setup_cfg(overrides, arch)
     out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
-    if mesh_spec == "dp=2":
+    if mesh_spec in SHARD_GRAD_CHECKS:
         out["grad"] = _shard_grad_check(model_cfg, dev, PrecisionPolicy(
-            backend=spec, default_splits=TRAIN_SPLITS))
+            backend=spec, default_splits=TRAIN_SPLITS), mesh_spec,
+            SHARD_GRAD_CHECKS[mesh_spec])
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     for key in ops.LAUNCHES:
@@ -1513,7 +1543,8 @@ def _shard_rank(mesh_spec, overrides):
     report = {}
     ckpt = os.path.join(SHARD_DIR, mesh_spec.replace(",", "_"))
     with _K1Shapes() as launched:
-        losses = train.main(train_argv(SHARD_STEPS, ckpt, spec, overrides)
+        losses = train.main(train_argv(SHARD_STEPS, ckpt, spec, overrides,
+                                       arch=arch)
                             + ["--mesh", mesh_spec], device=dev,
                             report=report)
         torch.cuda.synchronize()
@@ -1531,9 +1562,9 @@ def _shard_rank(mesh_spec, overrides):
     return out
 
 
-def _train_setup_cfg(overrides):
+def _train_setup_cfg(overrides, arch="smollm_360m"):
     from repro_torch.configs import get_config
-    return get_config("smollm_360m").replace(**overrides)
+    return get_config(arch).replace(**overrides)
 
 
 def phase_shard(errs, trained, **overrides):
@@ -1552,10 +1583,7 @@ def phase_shard(errs, trained, **overrides):
     import shutil
 
     from repro_torch.kernels import ops
-    from repro_torch.models import Model
-    from repro_torch.shard import Mesh, shard_state, train_state_specs
     from repro_torch.shard.launch import spawn
-    from repro_torch.train import AdamW, checkpoint
 
     cfg = _train_setup_cfg(overrides)
     tokens = 4 * 128
@@ -1572,32 +1600,8 @@ def phase_shard(errs, trained, **overrides):
         ranks = spawn(_shard_rank, dp * tp, (spec, overrides),
                       device="cuda", timeout=SHARD_TIMEOUT)
         wall = time.perf_counter() - t0
-        for r in ranks:
-            print(f"[shard] {spec} rank {r['rank']}: backend {r['backend']}"
-                  f", step ms {r['step_ms']}, peak memory {r['peak']:.2f} "
-                  f"GiB, K1 launches {r['launches']['split_gemm']} (site_exec"
-                  f" {r['site_exec']}, predicted {r['predicted']}), "
-                  f"{r['offloaded']} of {len(r['names'])} sites offloaded "
-                  f"{r['spmd']}, {r['buckets']} gradient buckets, losses "
-                  f"{r['losses']}", flush=True)
-            for key, val in r["launches"].items():
-                launches[key] += val
-            if not (r["launches"]["split_gemm"] == r["site_exec"]
-                    == r["predicted"] > 0):
-                fail(f"shard {spec} rank {r['rank']}: K1 launches "
-                     f"{r['launches']} != site_exec {r['site_exec']} or "
-                     f"the site report's {r['predicted']}")
-            if not set(r["shapes"]) <= set(held[spec]) | known:
-                fail(f"shard {spec}: K1 launched at "
-                     f"{sorted(set(r['shapes']) - set(held[spec]))}, "
-                     "shapes it was not held at")
-            want = trained["emulated_losses"][:SHARD_STEPS]
-            rel = [abs(g - w) / abs(w) for g, w in zip(r["losses"], want)]
-            print(f"[shard] {spec} rank {r['rank']}: |loss - single-device "
-                  f"emulated| / loss {rel} (bound {TRAIN_LOSS_BOUND})")
-            if len(rel) != SHARD_STEPS or max(rel) > TRAIN_LOSS_BOUND:
-                fail(f"shard {spec} losses {r['losses']} against the single"
-                     f" device's {want}")
+        _hold_ranks("shard", spec, ranks, set(held[spec]) | known,
+                    trained["emulated_losses"][:SHARD_STEPS], launches)
         print(f"[shard] {spec}: {dp * tp} ranks in {wall:.1f} s")
         if spec == "dp=2":
             want = ["shmap0/" + name for name in trained["site_names"]]
@@ -1614,28 +1618,180 @@ def phase_shard(errs, trained, **overrides):
             if not rel <= TRAIN_GRAD_BOUND:
                 fail(f"dp=2 step-1 gradient {leaf} {rel}")
         else:
-            t0 = time.perf_counter()
-            model = Model(cfg, device="cuda", seed=0)
-            like = (model.params, AdamW().init(model.params))
-            ckpt = os.path.join(SHARD_DIR, spec.replace(",", "_"))
-            state = checkpoint.restore(ckpt, SHARD_STEPS, like)
-            del like, model
-            specs = train_state_specs(cfg)[0]
-            for r in ranks:
-                mesh = Mesh({"dp": dp, "tp": tp}, rank=r["rank"])
-                got = _sha256(shard_state(state[0], specs, mesh))
-                if got != r["params"]:
-                    fail(f"tp=5 checkpoint restored on one device differs "
-                         f"from rank {r['rank']}'s parameters")
-            names = sorted(os.listdir(os.path.join(
-                ckpt, f"step_{SHARD_STEPS:08d}")))
-            print(f"[shard] {spec} checkpoint {names} restored on one "
-                  f"device: each rank's parameter blocks bit-equal to its "
-                  f"final ones ({time.perf_counter() - t0:.1f} s)")
-            del state
-            torch.cuda.empty_cache()
+            _hold_tp_checkpoint("shard", cfg, spec, dp, tp, ranks)
     shutil.rmtree(SHARD_DIR, ignore_errors=True)
     return launches, new
+
+
+def _hold_ranks(tag, spec, ranks, held, want, launches):
+    """Print each rank of a train mesh and hold it: K1 launches ==
+    ``site_exec`` == the site report's prediction > 0, K1 launched only
+    at shapes of ``held``, the losses within ``TRAIN_LOSS_BOUND`` of
+    ``want`` (a single device's, same seed and batches).  Adds the
+    ranks' launches into ``launches``."""
+    for r in ranks:
+        print(f"[{tag}] {spec} rank {r['rank']}: backend {r['backend']}"
+              f", step ms {r['step_ms']}, peak memory {r['peak']:.2f} "
+              f"GiB, K1 launches {r['launches']['split_gemm']} (site_exec"
+              f" {r['site_exec']}, predicted {r['predicted']}), "
+              f"{r['offloaded']} of {len(r['names'])} sites offloaded "
+              f"{r['spmd']}, {r['buckets']} gradient buckets, losses "
+              f"{r['losses']}", flush=True)
+        for key, val in r["launches"].items():
+            launches[key] += val
+        if not (r["launches"]["split_gemm"] == r["site_exec"]
+                == r["predicted"] > 0):
+            fail(f"{tag} {spec} rank {r['rank']}: K1 launches "
+                 f"{r['launches']} != site_exec {r['site_exec']} or "
+                 f"the site report's {r['predicted']}")
+        if not set(r["shapes"]) <= held:
+            fail(f"{tag} {spec}: K1 launched at "
+                 f"{sorted(set(r['shapes']) - held)}, shapes it was not "
+                 "held at")
+        rel = [abs(g - w) / abs(w) for g, w in zip(r["losses"], want)]
+        print(f"[{tag}] {spec} rank {r['rank']}: |loss - single-device "
+              f"emulated| / loss {rel} (bound {TRAIN_LOSS_BOUND})")
+        if len(rel) != SHARD_STEPS or max(rel) > TRAIN_LOSS_BOUND:
+            fail(f"{tag} {spec} losses {r['losses']} against the single"
+                 f" device's {want}")
+
+
+def _hold_tp_checkpoint(tag, cfg, spec, dp, tp, ranks):
+    """The mesh's checkpoint of ``cfg``, restored on one device in this
+    process and cut to each rank's blocks (``shard_state``), must be
+    bit-equal to every rank's final parameters."""
+    from repro_torch.models import Model
+    from repro_torch.shard import Mesh, shard_state, train_state_specs
+    from repro_torch.train import AdamW, checkpoint
+
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    like = (model.params, AdamW().init(model.params))
+    ckpt = os.path.join(SHARD_DIR, spec.replace(",", "_"))
+    state = checkpoint.restore(ckpt, SHARD_STEPS, like)
+    del like, model
+    specs = train_state_specs(cfg)[0]
+    for r in ranks:
+        mesh = Mesh({"dp": dp, "tp": tp}, rank=r["rank"])
+        got = _sha256(shard_state(state[0], specs, mesh))
+        if got != r["params"]:
+            fail(f"tp={tp} checkpoint restored on one device differs "
+                 f"from rank {r['rank']}'s parameters")
+    names = sorted(os.listdir(os.path.join(ckpt, f"step_{SHARD_STEPS:08d}")))
+    print(f"[{tag}] {spec} checkpoint {names} restored on one "
+          f"device: each rank's parameter blocks bit-equal to its "
+          f"final ones ({time.perf_counter() - t0:.1f} s)")
+    del state
+    torch.cuda.empty_cache()
+
+
+# The big-mesh phase: the tp-heavy corner on the card.  tp=8 divides
+# reduced_100m's 16 heads, 8 kv heads and d_ff 2816 (no tp > 5 divides
+# SmolLM-360M's); its 8 ranks share the card over gloo.  dp=4,tp=8 (32
+# CUDA contexts on one card) is left to the CPU tests
+# (tests/test_torch_mesh_large.py), which also run dp=16,tp=2.
+MESH_LARGE_ARCH = "reduced_100m"
+MESH_LARGE = ("dp=1,tp=8", 1, 8)
+MESH_LARGE_DIR = os.path.join(ROOT, "build", "mesh_large_smoke")
+# The meshes whose ranks check their step-1 gradient against one
+# device's, and the seed of the drawn LM head (None: the zero head, so
+# only the head's gradient is nonzero).
+SHARD_GRAD_CHECKS = {"dp=2": None, MESH_LARGE[0]: 1}
+
+
+def phase_mesh_large(errs, known, **overrides):
+    """reduced_100m at full width trained through ``launch.train.main
+    --mesh dp=1,tp=8``, ``pallas_int8_6``, 2 steps of 4 x 128 tokens, and
+    on one device in this process with the same seed and batches.
+    Held: K1 bitwise at every shape of both runs not in ``known`` (held
+    by an earlier phase); the single device's K1 launches == its
+    ``site_exec`` == the site report's prediction; per rank the same
+    (``_hold_ranks``) and the losses within ``TRAIN_LOSS_BOUND`` of the
+    single device's; the 8-shard checkpoint restored on one device and
+    cut per rank bit-equal to each rank's final parameters; before the
+    training, each rank's step-1 gradient under a drawn head (the zero
+    head gives the layers a zero gradient, and the losses see only the
+    forward and the head's update) against the single device's cut to
+    its blocks within ``TRAIN_GRAD_BOUND`` (``_shard_grad_check``).
+    Returns K1's launches over both runs and the tp=8 ranks' new
+    shapes."""
+    import shutil
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.shard.launch import spawn
+
+    cfg = _train_setup_cfg(overrides, MESH_LARGE_ARCH)
+    spec_mesh, dp, tp = MESH_LARGE
+    tokens = 4 * 128
+    backend = f"pallas_int8_{TRAIN_SPLITS}"
+    single_shapes = set(train_gemm_shapes(cfg, tokens))
+    mesh_shapes = set(shard_gemm_shapes(cfg, tokens // dp, tp))
+    new = sorted((single_shapes | mesh_shapes) - set(known))
+    print(f"[mesh-large] {cfg.name}: {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_params():,} float32 "
+          f"parameters; {spec_mesh}: per rank q {cfg.q_dim // tp}, kv "
+          f"{cfg.kv_dim // tp}, d_ff {cfg.d_ff // tp} columns", flush=True)
+    phase_k1_train_shapes(errs, new, tag="mesh-large")
+    shutil.rmtree(MESH_LARGE_DIR, ignore_errors=True)
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    launches = {key: 0 for key in ops.LAUNCHES}
+
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    t0 = time.perf_counter()
+    with _K1Shapes() as launched:
+        want = train.main(train_argv(SHARD_STEPS, MESH_LARGE_DIR, backend,
+                                     overrides, arch=MESH_LARGE_ARCH),
+                          device="cuda", report=report)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    on = [site for site in report["sites"] if site.offloaded]
+    predicted = SHARD_STEPS * sum(s.batch * s.mult for s in on)
+    got = ops.LAUNCHES["split_gemm"]
+    print(f"[mesh-large] one device: step ms {report['step_ms']}, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+          f"K1 launches {got} (site_exec {report['site_exec']}, predicted "
+          f"{predicted}), {len(on)} of {len(report['sites'])} sites "
+          f"offloaded, losses {want}; main() {wall:.1f} s", flush=True)
+    for key, val in ops.LAUNCHES.items():
+        launches[key] += val
+    if not got == report["site_exec"] == predicted > 0:
+        fail(f"mesh-large one device: K1 launches {dict(ops.LAUNCHES)} != "
+             f"site_exec {report['site_exec']} or the site report's "
+             f"{predicted}")
+    if not launched.seen <= single_shapes:
+        fail(f"mesh-large one device: K1 launched at "
+             f"{sorted(launched.seen - single_shapes)}, shapes it was not "
+             "held at")
+    if len(want) != SHARD_STEPS or not all(np.isfinite(want)):
+        fail(f"mesh-large one-device losses {want}")
+    shutil.rmtree(MESH_LARGE_DIR, ignore_errors=True)
+    del report
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn(_shard_rank, dp * tp, (spec_mesh, overrides,
+                                         MESH_LARGE_ARCH),
+                  device="cuda", timeout=SHARD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    _hold_ranks("mesh-large", spec_mesh, ranks, mesh_shapes, want, launches)
+    print(f"[mesh-large] {spec_mesh}: {dp * tp} ranks in {wall:.1f} s "
+          f"(start-up, model init, sites and {SHARD_STEPS} steps each)")
+    for r in ranks:
+        leaf, rel = r["grad"]
+        print(f"[mesh-large] {spec_mesh} rank {r['rank']}: step-1 gradient "
+              f"(random head) against one device's, cut to its blocks, "
+              f"worst leaf {leaf} {rel:.3e} (bound {TRAIN_GRAD_BOUND})")
+        if not rel <= TRAIN_GRAD_BOUND:
+            fail(f"mesh-large {spec_mesh} rank {r['rank']} gradient {leaf} "
+                 f"{rel}")
+    _hold_tp_checkpoint("mesh-large", cfg, spec_mesh, dp, tp, ranks)
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    return launches, sorted(mesh_shapes - set(known))
 
 
 # The meshes of the serve-shard phase, ranks sharing the card over gloo,
@@ -3641,6 +3797,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    from repro_torch.configs import get_config
+
     phase_card()
     errs = {}
     phase_init()
@@ -3664,6 +3822,10 @@ def main():
     serve_shard_launches, serve_shard_shapes = phase_serve_shard(
         errs, served, shard_shapes)
     torch.cuda.empty_cache()
+    mesh_launches, mesh_shapes = phase_mesh_large(
+        errs, set(train_gemm_shapes(get_config("smollm_360m"), 512))
+        | set(shard_shapes))
+    torch.cuda.empty_cache()
     tune_launches, tune_pairs = phase_tune(errs, trained)
     torch.cuda.empty_cache()
     obs_launches = phase_obs(served, trained)
@@ -3677,19 +3839,22 @@ def main():
     example_launches = phase_examples(errs, served)
     torch.cuda.empty_cache()
     # Launch counts per kernel: the main paths' runs (MuST, serve, train,
-    # the train and serve meshes' ranks, the tune phase's plan-driven
+    # the train and serve meshes' ranks, reduced_100m on one device and
+    # its tp=8 ranks, the tune phase's plan-driven
     # train and serve, both again with telemetry on, the warm-started
     # serve and the control-flow program) and K3's A/B path, each read
     # with the counters zeroed before it.
     total = {key: launches[key] + serve_launches[key] + v1_launches[key]
              + train_launches[key] + shard_launches[key]
-             + serve_shard_launches[key] + tune_launches[key]
+             + serve_shard_launches[key] + mesh_launches[key]
+             + tune_launches[key]
              + obs_launches[key] + warm_launches[key] + cf_launches[key]
              + entry_launches[key] + example_launches[key]
              for key in launches}
     print(f"[launches] MuST {launches}, serve {serve_launches}, "
           f"train {train_launches}, shard ranks {shard_launches}, "
-          f"serve-shard ranks {serve_shard_launches}, tune "
+          f"serve-shard ranks {serve_shard_launches}, big-mesh runs "
+          f"{mesh_launches}, tune "
           f"{tune_launches}, obs "
           f"{obs_launches}, warm start {warm_launches}, control flow "
           f"{cf_launches}, entry points {entry_launches}, full-width CLI "
@@ -3697,6 +3862,9 @@ def main():
     shapes = k1_timed_shapes()
     shapes += [pair for pair in tune_pairs if pair not in shapes][:3]
     shapes += [(shape, TRAIN_SPLITS) for shape in shard_shapes
+               if (shape, TRAIN_SPLITS) not in shapes]
+    # The tp=8 ranks' per-shard GEMMs of reduced_100m.
+    shapes += [(shape, TRAIN_SPLITS) for shape in mesh_shapes
                if (shape, TRAIN_SPLITS) not in shapes]
     # The serve tp=5 ranks' per-shard GEMMs at the 3-row waves' m (768).
     shapes += [(shape, TRAIN_SPLITS) for shape in serve_shard_shapes
@@ -3706,7 +3874,6 @@ def main():
     # the tiny examples' served in their own processes.
     shapes += [((4096, 4096, 4096), ENTRY_SPLITS),
                ((4096, ENTRY_BATCH * 4096, 4096), ENTRY_SPLITS)]
-    from repro_torch.configs import get_config
     shapes += [((CLI_WAVE_ROWS, k, n), 6) for arch in ("smollm_360m", "tiny")
                for k, n in serve_gemm_shapes(get_config(arch))]
     rows = (phase_k1_timings(errs, total, shapes)

@@ -45,7 +45,7 @@ from repro_torch.core import PrecisionPolicy, offload, site_report, spmd_scope
 from repro_torch.launch.train import build_train_step
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import Model
-from repro_torch.shard import (Mesh, PartitionSpec, assemble_state,
+from repro_torch.shard import (Mesh, PartitionSpec,
                                bucket_indices, bucket_stats, build_mesh,
                                data_parallel_sharding, flatten_specs,
                                lm_param_specs,
@@ -54,7 +54,7 @@ from repro_torch.shard import (Mesh, PartitionSpec, assemble_state,
                                train_mesh_setup, train_state_specs)
 from repro_torch.shard.launch import spawn
 from repro_torch.train import AdamW, SyntheticText
-from repro_torch.train.checkpoint import tree_flatten, tree_unflatten
+from repro_torch.train.checkpoint import tree_flatten
 from repro_torch.tune.cli import main as tune_main
 
 import torch_shard_workers as workers
@@ -199,16 +199,7 @@ def eight():
 
 
 def _global_params(results):
-    """The global parameters from the ranks' blocks: the tp ranks of the
-    first dp row, in tp order."""
-    row = sorted((r for r in results if r["coords"]["dp"] == 0),
-                 key=lambda r: r["coords"]["tp"])
-    specs = train_state_specs(TP_F64)[0]
-    like = Model(TP_F64, device="cpu", seed=0).params
-    trees = [tree_unflatten(like, [torch.from_numpy(x) for x in r["params"]])
-             for r in row]
-    return [np.asarray(x) for x in tree_flatten(
-        assemble_state(trees, specs))]
+    return workers.global_params(results, TP_F64)
 
 
 def _close(got, want, atol):

@@ -16,10 +16,10 @@ from repro_torch.core import PrecisionPolicy, offload
 from repro_torch.launch.train import (build_sharded_train_step,
                                       build_train_step)
 from repro_torch.models import Model
-from repro_torch.shard import (build_mesh, bucketed_psum,
+from repro_torch.shard import (assemble_state, build_mesh, bucketed_psum,
                                data_parallel_setup, reduce_gradients,
                                replicate, ring_all_reduce, shard_batch,
-                               train_mesh_setup)
+                               train_mesh_setup, train_state_specs)
 from repro_torch.train import AdamW, SyntheticText, checkpoint
 from repro_torch.tune import Calibrator, PlanStaleError, solve_plan
 
@@ -106,16 +106,17 @@ def _site_info(sites):
 
 def train(cfg, spec, steps, grad_reduce="bucketed", backend="",
           default_splits=6, min_dim=32, accumulator="f64", lr=3e-3,
-          bucket_bytes=None):
+          bucket_bytes=None, batch=BATCH, seq_len=SEQ_LEN):
     """``steps`` steps of the sharded train step of ``cfg`` (seed 0) on
-    this rank, natively or under ``backend``: the losses, this rank's
+    this rank, ``batch`` rows of ``seq_len`` tokens a step over the
+    mesh, natively or under ``backend``: the losses, this rank's
     coordinates, its final parameter blocks and the site report."""
     model = Model(cfg, device="cpu", seed=0)
     opt = AdamW(lr=lr)
-    data = SyntheticText(cfg.vocab_size, SEQ_LEN, BATCH, seed=0)
+    data = SyntheticText(cfg.vocab_size, seq_len, batch, seed=0)
     params = model.params
     mesh, _, (params, state), _ = train_mesh_setup(
-        spec, BATCH, cfg, (params, opt.init(params)))
+        spec, batch, cfg, (params, opt.init(params)))
     kw = {} if bucket_bytes is None else {"bucket_bytes": bucket_bytes}
     step = build_sharded_train_step(model, opt, mesh,
                                     grad_reduce=grad_reduce, **kw)
@@ -128,11 +129,24 @@ def train(cfg, spec, steps, grad_reduce="bucketed", backend="",
             torch.as_tensor(data.batch(0)), mesh, "dp"))
     losses = []
     for i in range(steps):
-        batch = shard_batch(torch.as_tensor(data.batch(i)), mesh, "dp")
-        params, state, loss = step(params, state, batch)
+        rows = shard_batch(torch.as_tensor(data.batch(i)), mesh, "dp")
+        params, state, loss = step(params, state, rows)
         losses.append(float(loss))
     return {"losses": losses, "coords": dict(mesh.coords),
             "params": _np(params), "sites": _site_info(sites)}
+
+
+def global_params(results, cfg):
+    """The global parameters of ``cfg`` from the :func:`train` results of
+    every rank: the blocks of the tp ranks of the first dp row, in tp
+    order, assembled (runs in the test process)."""
+    row = sorted((r for r in results if r["coords"]["dp"] == 0),
+                 key=lambda r: r["coords"].get("tp", 0))
+    like = Model(cfg, device="cpu", seed=0).params
+    trees = [checkpoint.tree_unflatten(
+        like, [torch.from_numpy(x) for x in r["params"]]) for r in row]
+    return [np.asarray(x) for x in checkpoint.tree_flatten(
+        assemble_state(trees, train_state_specs(cfg)[0]))]
 
 
 def stale_plan(cfg, spec):
