@@ -1345,35 +1345,26 @@ def phase_train_resume(spec, overrides):
 def _profile_step(label, fn, args, tag="train-profile", host_time=False):
     """One timed and one profiled call of a train step ``fn``: wall time,
     peak memory (and, ``host_time``, the host's time in
-    ``ops.ozaki_matmul`` during the timed call), the device's busy time
-    and idle share, and K1's device time and launches; returns K1's
-    device ms (None without a trace)."""
+    ``ops.ozaki_matmul`` during the timed call, read from its ``ozaki``
+    spans), the device's busy time and idle share, and K1's device time
+    and launches; returns K1's device ms (None without a trace)."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
+    from repro_torch.obs import trace
 
-    host = {"s": 0.0, "calls": 0}
-    real = ops.ozaki_matmul
-
-    def timed_ozaki(*a, **kw):
-        t0 = time.perf_counter()
-        out = real(*a, **kw)
-        host["s"] += time.perf_counter() - t0
-        host["calls"] += 1
-        return out
-
+    tracer = trace.Tracer()
     fn(*args)   # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    if host_time:
-        ops.ozaki_matmul = timed_ozaki
-    try:
+    with trace.activate(tracer) if host_time else contextlib.nullcontext():
         t0 = time.perf_counter()
         fn(*args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        ops.ozaki_matmul = real
+    ozaki_us = [ev["dur"] for ev in tracer.events if ev["name"] == "ozaki"]
+    host = {"s": sum(ozaki_us) / 1e6, "calls": len(ozaki_us)}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

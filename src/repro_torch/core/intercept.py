@@ -95,11 +95,14 @@ once per :func:`scan` iteration, and for each backward site once per
 execution of its cotangent product, on autograd's device thread when
 the tensors are on the card (handlers must be thread-safe, as
 :class:`repro_torch.obs.MetricsRun`'s is).  It reads nothing from the
-device, so it adds no synchronization.  The reference stages a
-zero-operand ``jax.debug.callback`` instead, which under reverse-mode
-AD reports a loop-body site once per step (ROADMAP section 3).  A
-gradient taken after ``fn`` returned runs through the forward site's
-engine and fires nothing, as the reference's ``custom_vjp`` does.
+device, so it adds no synchronization.  Each such execution is also
+one ``offload.site`` layer span (:mod:`repro_torch.obs.trace`) from
+the site's routing to its output, when a tracer is active.  The
+reference stages a zero-operand ``jax.debug.callback`` instead, which
+under reverse-mode AD reports a loop-body site once per step (ROADMAP
+section 3).  A gradient taken after ``fn`` returned runs through the
+forward site's engine and fires nothing, as the reference's
+``custom_vjp`` does.
 
 Control flow.  :func:`cond`, :func:`switch` and :func:`while_loop` are
 the port's ``jax.lax`` counterparts.  Under an offload a ``cond`` or
@@ -188,6 +191,7 @@ from torch.autograd.graph import get_gradient_edge
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
 
+from ..obs.trace import span
 from .backends import GemmBackend, get_backend
 from .precision import PrecisionPolicy
 
@@ -1839,8 +1843,10 @@ class _OffloadMode(TorchFunctionMode):
     def run_site(self, site: Site, a3, b3, out_dtype):
         """One batched product through ``site``'s engine, or natively."""
         if self._engine_runs(site):
-            self._fire(site)
-            return _batched(self.engine_for(site), site)(a3, b3, out_dtype)
+            with span("offload.site"):
+                self._fire(site)
+                return _batched(self.engine_for(site), site)(a3, b3,
+                                                             out_dtype)
         return _native(a3, b3, out_dtype)
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
@@ -1894,15 +1900,19 @@ class _OffloadMode(TorchFunctionMode):
         routed = self.execute and (engine or (
             any(needs) and site.backend == "dgemm"))
         if routed:
-            run = _batched(self.engine_for(site), site) if engine else _native
-            if engine:
-                self._fire(site)
-            a3, b3 = dims.pack(lhs, rhs)
-            y3 = _SiteMatmul.apply(a3, b3, run, dtype, self,
-                                   (scope.prefix, j))
-            node = y3.grad_fn
-            y = dims.unpack(y3)
-            out = finish(y)
+            # An execution through the engine is one offload.site span;
+            # a dgemm site routed for its cotangents is none.
+            with span("offload.site") if engine else contextlib.nullcontext():
+                run = (_batched(self.engine_for(site), site) if engine
+                       else _native)
+                if engine:
+                    self._fire(site)
+                a3, b3 = dims.pack(lhs, rhs)
+                y3 = _SiteMatmul.apply(a3, b3, run, dtype, self,
+                                       (scope.prefix, j))
+                node = y3.grad_fn
+                y = dims.unpack(y3)
+                out = finish(y)
         else:
             out = y = native()
             node = y.grad_fn

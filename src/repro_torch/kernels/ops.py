@@ -39,6 +39,9 @@ nest in eager torch (pair-major, then k-tile, then the TwoSum fold) and
 are held bitwise against the Pallas kernels in interpret mode by the
 CPU tests; ``chip_smoke.py`` holds the CUDA kernels bitwise against the
 plain versions on the card.  ``LAUNCHES`` counts kernel launches.
+:func:`ozaki_matmul` opens the layer span ``ozaki`` around each call,
+and inside it ``ozaki.slice`` (both operands' slicing), ``ozaki.kernel``
+(the launch) and ``ozaki.combine`` (:mod:`repro_torch.obs.trace`).
 
 The pair schedule is built once per ``(s, slice_bits)`` (and, for K3's
 gather, once per device) and shared by all three wrappers.
@@ -54,6 +57,7 @@ import torch
 
 from ..core.ozaki import (SLICE_BITS, _two_sum, int8_matmul_exact,
                           is_complex_problem, pair_indices, slice_matrix)
+from ..obs.trace import span
 from . import _build, slicing, tile_model
 
 __all__ = [
@@ -496,46 +500,56 @@ def ozaki_matmul(a, b, num_splits: int = 6, accumulator: str = "df32",
     tile (K1's :func:`~repro_torch.kernels.tile_model.k1_plan`, K2's
     32x32) whatever ``block_m``/``block_n`` say.
     """
-    if accumulator not in ("df32", None):
-        raise ValueError(
-            f"unsupported accumulator {accumulator!r} for the split-GEMM "
-            "kernels: they always accumulate compensated-f32 ('df32'); "
-            "pass 'df32' or None, or use repro_torch.core.ozaki_matmul "
-            "for 'f64'")
-    if a.ndim != 2 or b.ndim != 2:
-        raise ValueError("ozaki_matmul expects 2-D operands, got "
-                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    if out_dtype is None:
-        out_dtype = torch.promote_types(a.dtype, b.dtype)
-    if is_complex_problem(a, b, out_dtype):
-        raise NotImplementedError(
-            "complex operands: route through repro_torch.core.ozaki_matmul")
+    with span("ozaki"):
+        if accumulator not in ("df32", None):
+            raise ValueError(
+                f"unsupported accumulator {accumulator!r} for the "
+                "split-GEMM kernels: they always accumulate "
+                "compensated-f32 ('df32'); pass 'df32' or None, or use "
+                "repro_torch.core.ozaki_matmul for 'f64'")
+        if a.ndim != 2 or b.ndim != 2:
+            raise ValueError("ozaki_matmul expects 2-D operands, got "
+                             f"{tuple(a.shape)} @ {tuple(b.shape)}")
+        if out_dtype is None:
+            out_dtype = torch.promote_types(a.dtype, b.dtype)
+        if is_complex_problem(a, b, out_dtype):
+            raise NotImplementedError("complex operands: route through "
+                                      "repro_torch.core.ozaki_matmul")
 
-    m, k = a.shape
-    n = b.shape[1]
-    if tiles is None and None in (block_m, block_n, block_k):
-        tiles = tile_model.select_tiles(m, k, n, num_splits,
-                                        dtype=out_dtype, fused=fuse_slicing)
-    if tiles is not None:
-        block_k = tiles.block_k if block_k is None else block_k
+        m, k = a.shape
+        n = b.shape[1]
+        if tiles is None and None in (block_m, block_n, block_k):
+            tiles = tile_model.select_tiles(m, k, n, num_splits,
+                                            dtype=out_dtype,
+                                            fused=fuse_slicing)
+        if tiles is not None:
+            block_k = tiles.block_k if block_k is None else block_k
 
-    if fuse_slicing:
-        a_hi, a_lo, sigma_a = slicing.to_operand_pair(a, axis=1)
-        b_hi, b_lo, sigma_b = slicing.to_operand_pair(b, axis=0)
-        hi, lo = split_gemm_fused(
-            a_hi.contiguous(), a_lo.contiguous(), b_hi.contiguous(),
-            b_lo.contiguous(), num_splits, slice_bits=slice_bits,
-            block_k=block_k)
-    else:
-        a_sl, sigma_a = slice_matrix(a, num_splits, axis=1,
-                                     slice_bits=slice_bits)
-        # B's slices k-major, (s, n, k): bit for bit the transpose of
-        # slicing B along axis 0, written k-major by the same pass.
-        b_sl_t, sigma_b = slice_matrix(b.mT, num_splits, axis=1,
-                                       slice_bits=slice_bits)
-        hi, lo = split_gemm_kmajor(a_sl, b_sl_t, num_splits,
-                                   slice_bits=slice_bits, block_k=block_k)
-    deferred = 2.0 ** (-slice_bits * (num_splits + 1))
-    c = (hi.to(out_dtype) + lo.to(out_dtype)) * deferred
-    scale = (sigma_a[:, None] * sigma_b[None, :]).to(out_dtype)
-    return c * scale
+        if fuse_slicing:
+            with span("ozaki.slice"):
+                a_hi, a_lo, sigma_a = slicing.to_operand_pair(a, axis=1)
+                b_hi, b_lo, sigma_b = slicing.to_operand_pair(b, axis=0)
+                halves = [x.contiguous()
+                          for x in (a_hi, a_lo, b_hi, b_lo)]
+            with span("ozaki.kernel"):
+                hi, lo = split_gemm_fused(*halves, num_splits,
+                                          slice_bits=slice_bits,
+                                          block_k=block_k)
+        else:
+            with span("ozaki.slice"):
+                a_sl, sigma_a = slice_matrix(a, num_splits, axis=1,
+                                             slice_bits=slice_bits)
+                # B's slices k-major, (s, n, k): bit for bit the
+                # transpose of slicing B along axis 0, written k-major by
+                # the same pass.
+                b_sl_t, sigma_b = slice_matrix(b.mT, num_splits, axis=1,
+                                               slice_bits=slice_bits)
+            with span("ozaki.kernel"):
+                hi, lo = split_gemm_kmajor(a_sl, b_sl_t, num_splits,
+                                           slice_bits=slice_bits,
+                                           block_k=block_k)
+        with span("ozaki.combine"):
+            deferred = 2.0 ** (-slice_bits * (num_splits + 1))
+            c = (hi.to(out_dtype) + lo.to(out_dtype)) * deferred
+            scale = (sigma_a[:, None] * sigma_b[None, :]).to(out_dtype)
+            return c * scale

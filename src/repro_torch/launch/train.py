@@ -45,6 +45,18 @@ at ``/metrics``; ``--metrics-push-url`` pushes it to an aggregating
 server every ``--log-every`` steps.  Inspect a run with ``python -m
 repro_torch.obs report|export|attrib|diff``.
 
+``--layer-spans`` (off by default) makes the run's tracer the active
+one (:func:`repro_torch.obs.activate`) while the steps run, so the
+port's layer spans land in the run too: ``train.step`` with its
+``train.forward``, ``train.backward`` and ``train.optimizer``, one
+``offload.site`` per execution of an offloaded site (backward ones on
+autograd's thread), and one ``ozaki`` per ``ozaki_matmul`` call with
+its ``ozaki.slice``, ``ozaki.kernel`` and ``ozaki.combine``.  They
+are held in memory while the steps run and written to the run's JSONL
+when the step loop ends; ``python -m repro_torch.obs export`` renders
+them as a Chrome trace.  Without the switch the run's file is as
+before.
+
 ``--mesh dp=N`` runs the same step data-parallel over N ranks
 (:func:`build_sharded_train_step`), one process per mesh position
 (:mod:`repro_torch.shard.launch`): the trainer starts them itself (or
@@ -69,6 +81,7 @@ ranks stay silent, or push their registry with ``--metrics-push-url``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import threading
@@ -84,7 +97,7 @@ from ..core import PrecisionPolicy, get_backend, offload
 from ..models import Model
 from ..core.intercept import spmd_scope
 from ..obs import (MetricsRun, MetricsServer, NumericsMonitor, Registry,
-                   get_logger, push_snapshot)
+                   activate, get_logger, push_snapshot, span)
 from ..shard import (DEFAULT_BUCKET_BYTES, DP_AXIS, GRAD_REDUCE_MODES,
                      TP_AXIS, all_reduce_mean, bucket_stats,
                      reduce_gradients, shard_batch, shard_state,
@@ -113,9 +126,11 @@ def build_train_step(model: Model, opt: AdamW):
     """
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(model, params, batch)
-        params, opt_state = opt.update(grads, params, opt_state)
-        return params, opt_state, loss
+        with span("train.step"):
+            loss, grads = loss_and_grads(model, params, batch)
+            with span("train.optimizer"):
+                params, opt_state = opt.update(grads, params, opt_state)
+            return params, opt_state, loss
 
     return train_step
 
@@ -128,8 +143,11 @@ def loss_and_grads(model: Model, params, batch):
     leaves = [p.detach().requires_grad_()
               for p in checkpoint.tree_flatten(params)]
     with torch.enable_grad():
-        loss = model.loss(checkpoint.tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        with span("train.forward"):
+            loss = model.loss(checkpoint.tree_unflatten(params, leaves),
+                              batch)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), checkpoint.tree_unflatten(params, grads)
 
 
@@ -263,6 +281,12 @@ def _parse(argv):
                     help="push this process's registry snapshot to an "
                          "aggregating metrics server (http://host:port"
                          "/push) every --log-every steps")
+    ap.add_argument("--layer-spans", action="store_true",
+                    help="record the port's layer spans (train step "
+                         "phases, offloaded sites, ozaki_matmul's "
+                         "slicing, kernel and combine) into the run's "
+                         "telemetry, held in memory until the steps "
+                         "end; requires telemetry on")
     ap.add_argument("--numerics-every", type=int, default=25,
                     help="NumericsMonitor period: every Nth step "
                          "re-measure the probe site's realized error "
@@ -348,6 +372,9 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
     if args.tune and not args.plan:
         raise SystemExit("[train] --tune needs --plan (where to write "
                          "the calibrated plan)")
+    if args.layer_spans and args.metrics_dir == "none":
+        raise SystemExit("[train] --layer-spans records into the run's "
+                         "telemetry; it needs --metrics-dir")
     if args.plan and args.backend and not args.tune:
         raise SystemExit("[train] --plan and --backend are both "
                          "precision configurations; pass one (with "
@@ -542,6 +569,9 @@ def _train(args, dev, report) -> List[float]:
 
     losses: List[float] = []
     t_last = time.perf_counter()
+    layer_spans = contextlib.ExitStack()
+    if args.layer_spans and metrics is not None:
+        layer_spans.enter_context(activate(metrics.tracer))
     try:
         for step in range(start, args.steps):
             batch = batch_at(step)
@@ -576,6 +606,7 @@ def _train(args, dev, report) -> List[float]:
                 save_ckpt(step + 1, (params, opt_state))
         save_ckpt(args.steps, (params, opt_state))
     finally:
+        layer_spans.close()   # writes the held spans
         if registry is not None:
             # The site hook runs as each product is issued (backward
             # ones on autograd's threads, done when the step returns),

@@ -14,11 +14,15 @@ other modules need the standard library alone:
 * :mod:`repro_torch.obs.registry` — labeled counters/gauges/histograms
   (with p50/p95/p99 estimates), safe to update from autograd's device
   threads, where the offload's hook fires for backward GEMMs;
-* :mod:`repro_torch.obs.trace` — span tracer with Chrome-trace export;
+* :mod:`repro_torch.obs.trace` — span tracer with Chrome-trace export,
+  and the layer spans that the port's modules open into the active
+  tracer (:func:`activate`, :func:`span`);
 * :mod:`repro_torch.obs.events` — JSONL structured-event sink and the
   run-scoped :class:`MetricsRun` bundle the entry points construct;
 * :mod:`repro_torch.obs.numerics` — :class:`NumericsMonitor`, the runtime
-  drift check that closes the calibrate→train loop;
+  drift check that closes the calibrate→train loop (loaded on first
+  use: it imports :mod:`repro_torch.core`, whose modules open spans
+  through :mod:`~repro_torch.obs.trace`);
 * :mod:`repro_torch.obs.server` — the live plane: :class:`MetricsServer`
   serves ``/metrics`` in Prometheus text format while a job runs, and
   aggregates multi-process pushes (:func:`push_snapshot`);
@@ -36,11 +40,10 @@ from .diff import DiffReport, diff_runs
 from .events import EventList, EventSink, MetricsRun, json_safe, \
     load_runs, read_events
 from .log import LEVELS, Logger, get_logger, reset_logger
-from .numerics import NumericsMonitor, NumericsReport
 from .registry import Counter, Gauge, Histogram, Registry
 from .server import MetricsServer, push_snapshot, render_prometheus
 from .slo import SLOTracker
-from .trace import Tracer, to_chrome, write_chrome_trace
+from .trace import Tracer, activate, span, to_chrome, write_chrome_trace
 
 __all__ = [
     "AttribRow",
@@ -59,6 +62,7 @@ __all__ = [
     "Registry",
     "SLOTracker",
     "Tracer",
+    "activate",
     "attribution",
     "diff_runs",
     "get_logger",
@@ -68,6 +72,15 @@ __all__ = [
     "read_events",
     "render_prometheus",
     "reset_logger",
+    "span",
     "to_chrome",
     "write_chrome_trace",
 ]
+
+
+def __getattr__(name):
+    if name in ("NumericsMonitor", "NumericsReport"):
+        from . import numerics
+
+        return getattr(numerics, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
