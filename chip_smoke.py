@@ -141,6 +141,12 @@ bitwise and times the full-width init, and ``_pow2_scale`` card against
 CPU bitwise at about a million amax values across the float64 exponent
 range.
 
+Throughout, the slicing kernel is held at every operand layout the
+main paths launch it at (``_SliceLayouts``: its first launch at each
+layout, bitwise against ``slice_matrix``, here and in the mesh ranks),
+and each launch check counts two slicing launches per K1 launch
+(``k1_launches``).
+
 Every phase that fails raises, so the script exits non-zero and prints
 no result line.
 
@@ -149,6 +155,13 @@ no result line.
 holds K1 under every plan bitwise against its plain version at the timed
 shapes and times each plan (the sweep ``tile_model.k1_plan``'s rule and
 cost model come from).
+
+    python3 chip_smoke.py --slicing
+
+holds the slicing kernel (``kernels.slicing.slice_operand``) bitwise
+against ``slice_matrix`` and times it, its host time a call and the
+torch chain it replaces at the train cell's operands (``SLICE_TIMED``);
+the full run times it there too, after K2 and K3.
 
     python3 chip_smoke.py --k1-ab PARENT_DIR CHANGE_DIR [PAIRS]
     python3 chip_smoke.py --fused-ab PARENT_DIR CHANGE_DIR [PAIRS]
@@ -565,8 +578,7 @@ def phase_must(n=4096, block=256, n_energies=9):
         if peak not in nearest:
             fail(f"{mode} error peaks at energy index {peak}, not at the "
                  f"energies nearest E_f ({sorted(nearest)})")
-    expected = {"split_gemm": 3 * calls, "split_gemm_fused": calls,
-                "split_gemm_v1": 0, "gather_pairs_kmajor": 0}
+    expected = k1_launches(3 * calls, fused=calls)
     print(f"[must] launches {launches}, expected {expected} "
           f"({must.block_gemm_calls(cfg)} block GEMMs per energy x "
           f"{cfg.n_energies} energies x 4 real GEMMs per mode)")
@@ -661,8 +673,8 @@ def phase_v1_ab(errs, m=256, k=256, n=4096):
         check("split_gemm_v1 vs split_gemm", got, k1[s], {}, (m, k, n, s))
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    if launches != {"split_gemm": 0, "split_gemm_fused": 0,
-                    "split_gemm_v1": 3, "gather_pairs_kmajor": 3}:
+    if launches != {**k1_launches(0), "split_gemm_v1": 3,
+                    "gather_pairs_kmajor": 3}:
         fail(f"K3 path launch counts {launches}")
     t = tile_model.traffic(m, k, n, 6)
     if t.read_reduction != 3.5:
@@ -862,9 +874,7 @@ def phase_serve(checked_kn, seed=3, n_requests=8, max_new=16, splits=6,
           f"{predicted} from the site report (wave shapes {dict(shapes)}, "
           f"offloaded sites x layers per shape {per_shape}, "
           f"{per_tick} per decode tick x {rec['ticks']} ticks)")
-    if launches != {"split_gemm": predicted, "split_gemm_fused": 0,
-                    "split_gemm_v1": 0, "gather_pairs_kmajor": 0} \
-            or predicted == 0:
+    if launches != k1_launches(predicted) or predicted == 0:
         fail(f"serve launch counts {launches} != predicted {predicted}")
     same = sum(a == b for a, b in zip(toks_native, toks_emul))
     print(f"[serve] dgemm and pallas_int8_{splits} greedy streams equal for "
@@ -1106,6 +1116,80 @@ class _K1Shapes:
         self.ops._launch_k1 = self.launch
 
 
+def k1_launches(k1, fused=0):
+    """The launch counts of ``k1`` unfused ``ozaki_matmul`` calls on the
+    card (one K1 and two slicing launches each) and of ``fused`` fused
+    ones (one K2 launch each); every other kernel 0."""
+    return {"split_gemm": k1, "split_gemm_fused": fused, "split_gemm_v1": 0,
+            "gather_pairs_kmajor": 0, "slice_operand": 2 * k1}
+
+
+class _SliceLayouts:
+    """Holds the slicing kernel at every operand layout it launches at in
+    this process, from when it is made.  A layout is the operand's dtype,
+    shape, element strides and 16-byte alignment with s and the slice
+    bits: what fixes the kernel's plan.  The first launch at a layout is
+    held bitwise against ``slice_matrix`` on the operand the path handed
+    it and on a drawn operand of the same layout (values over 2**+-30;
+    the path's may be all zeros, as the train phase's zero head); sigma
+    on every row, the slices on rows without inf or NaN.  Each launch
+    then passes the hold.  The examples' command-line runs, in their own
+    processes, are outside it."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops, slicing
+
+        self.ops, self.slicing = ops, slicing
+        self.launch = slicing._launch
+        self.held, self.launches = set(), 0
+
+        def held(x, args):
+            got = self.launch(x, args)
+            self.launches += 1
+            key = (str(x.dtype).removeprefix("torch."), args.m, args.k,
+                   args.stride_m, args.stride_k, x.data_ptr() % 16 == 0,
+                   args.num_splits, args.slice_bits)
+            if key not in self.held:
+                self._hold(key, x, args, got)
+                self.held.add(key)
+            return got
+
+        held.__wrapped__ = self.launch
+        slicing._launch = held
+
+    def _hold(self, key, x, args, got):
+        from repro_torch.core.ozaki import slice_matrix
+
+        m, k = x.shape
+        sm, sk = x.stride()
+        off = 0 if key[5] else 1
+        size = off + (m - 1) * sm + (k - 1) * sk + 1
+        gen = torch.Generator(device=x.device).manual_seed(m * 65537 + k)
+        store = torch.randn(size, generator=gen, device=x.device,
+                            dtype=x.dtype) * torch.exp2(torch.randint(
+                                -30, 31, (size,), generator=gen,
+                                device=x.device).to(x.dtype))
+        drawn = store.as_strided((m, k), (sm, sk), off)
+        count = self.ops.LAUNCHES["slice_operand"]
+        cases = (("the path's operand", x, got),
+                 ("a drawn operand", drawn, self.launch(drawn, args)))
+        self.ops.LAUNCHES["slice_operand"] = count
+        for what, y, (sl, sigma) in cases:
+            want_sl, want_sigma = slice_matrix(y, args.num_splits, axis=1,
+                                               slice_bits=args.slice_bits)
+            rows = torch.isfinite(y).all(dim=1)
+            if not (torch.equal(sigma.view(torch.int64),
+                                want_sigma.view(torch.int64))
+                    and torch.equal(sl[:, rows], want_sl[:, rows])):
+                fail(f"slice_operand differs from slice_matrix on {what} "
+                     f"at layout {key} (dtype, m, k, strides, aligned, s, "
+                     "bits)")
+
+    def summary(self):
+        return (f"slice_operand held bitwise against slice_matrix at "
+                f"{len(self.held)} layouts, {self.launches} launches")
+
+
 def _train_batch(cfg, step):
     from repro_torch.train import SyntheticText
 
@@ -1286,12 +1370,11 @@ def phase_train(errs, **overrides):
         fail(f"emulated train losses {emul} differ from native {native} "
              f"by more than {TRAIN_LOSS_BOUND}")
     launches = runs[spec]["launches"]
-    want = {"split_gemm": TRAIN_STEPS * per_step, "split_gemm_fused": 0,
-            "split_gemm_v1": 0, "gather_pairs_kmajor": 0}
+    want = k1_launches(TRAIN_STEPS * per_step)
     print(f"[train] K1 launches {launches['split_gemm']}, predicted "
           f"{want['split_gemm']} ({TRAIN_STEPS} steps x {per_step} from the "
           f"site report); shapes launched {sorted(runs[spec]['shapes'])}")
-    if launches != want or runs["native"]["launches"]["split_gemm"]:
+    if launches != want or any(runs["native"]["launches"].values()):
         fail(f"train launch counts {launches} (native run "
              f"{runs['native']['launches']}) != predicted {want}")
     if not runs[spec]["shapes"] <= set(held):
@@ -1518,6 +1601,7 @@ def _shard_rank(mesh_spec, overrides, arch="smollm_360m"):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    hold = _SliceLayouts()
     dev = rank_device("cuda")
     spec = f"pallas_int8_{TRAIN_SPLITS}"
     model_cfg = _train_setup_cfg(overrides, arch)
@@ -1549,7 +1633,8 @@ def _shard_rank(mesh_spec, overrides, arch="smollm_360m"):
         names=[site.name for site in report["sites"]], offloaded=len(on),
         spmd=sorted({site.spmd for site in on}),
         predicted=SHARD_STEPS * sum(s.batch * s.mult for s in on),
-        buckets=bucket_stats(params)[0], params=_sha256(params))
+        buckets=bucket_stats(params)[0], params=_sha256(params),
+        slice_hold=hold.summary())
     return out
 
 
@@ -1627,11 +1712,12 @@ def _hold_ranks(tag, spec, ranks, held, want, launches):
               f" {r['site_exec']}, predicted {r['predicted']}), "
               f"{r['offloaded']} of {len(r['names'])} sites offloaded "
               f"{r['spmd']}, {r['buckets']} gradient buckets, losses "
-              f"{r['losses']}", flush=True)
+              f"{r['losses']}; {r['slice_hold']}", flush=True)
         for key, val in r["launches"].items():
             launches[key] += val
         if not (r["launches"]["split_gemm"] == r["site_exec"]
-                == r["predicted"] > 0):
+                == r["predicted"] > 0) or r["launches"] != k1_launches(
+                    r["site_exec"]):
             fail(f"{tag} {spec} rank {r['rank']}: K1 launches "
                  f"{r['launches']} != site_exec {r['site_exec']} or "
                  f"the site report's {r['predicted']}")
@@ -1750,7 +1836,8 @@ def phase_mesh_large(errs, known, **overrides):
           f"offloaded, losses {want}; main() {wall:.1f} s", flush=True)
     for key, val in ops.LAUNCHES.items():
         launches[key] += val
-    if not got == report["site_exec"] == predicted > 0:
+    if not got == report["site_exec"] == predicted > 0 or \
+            dict(ops.LAUNCHES) != k1_launches(got):
         fail(f"mesh-large one device: K1 launches {dict(ops.LAUNCHES)} != "
              f"site_exec {report['site_exec']} or the site report's "
              f"{predicted}")
@@ -1853,6 +1940,7 @@ def _serve_shard_rank(spec, layouts, served, overrides):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    hold = _SliceLayouts()
     rank_device("cuda")
     mesh = build_mesh(spec)
     model = _smollm("float32", served["seed"], **overrides)
@@ -1919,6 +2007,7 @@ def _serve_shard_rank(spec, layouts, served, overrides):
                                          "waves", "ticks")})
         del eng
         torch.cuda.empty_cache()
+    out["slice_hold"] = hold.summary()
     return out
 
 
@@ -1981,6 +2070,8 @@ def phase_serve_shard(errs, served, held, **overrides):
                       timeout=SERVE_SHARD_TIMEOUT)
         wall = time.perf_counter() - t0
         for r in ranks:
+            print(f"[serve-shard] {spec} rank {r['rank']}: "
+                  f"{r['slice_hold']}")
             for layout in layouts:
                 x = r[layout]
                 pre = x["prefill_tokens"] / max(x["prefill_ms"], 1e-9) * 1e3
@@ -2001,9 +2092,8 @@ def phase_serve_shard(errs, served, held, **overrides):
                 for key, val in x["launches"].items():
                     launches[key] += val
                 if not (x["launches"]["split_gemm"] == x["site_exec"]
-                        == x["predicted"] > 0) or any(
-                            val for key, val in x["launches"].items()
-                            if key != "split_gemm"):
+                        == x["predicted"] > 0) or x["launches"] != \
+                        k1_launches(x["site_exec"]):
                     fail(f"serve-shard {spec} {layout} rank {r['rank']}: "
                          f"launches {x['launches']} != site_exec "
                          f"{x['site_exec']} or the prediction "
@@ -2164,7 +2254,7 @@ def phase_tune(errs, trained, **overrides):
             or max(rel) > TRAIN_LOSS_BOUND:
         fail(f"losses under the plan {losses} against native {native}")
     if dict(launched.by_splits) != want or \
-            train_launches["split_gemm"] != sum(want.values()):
+            train_launches != k1_launches(sum(want.values())):
         fail(f"K1 launches under the plan {dict(launched.by_splits)} "
              f"({train_launches}) != predicted {want}")
     shapes = {pair[0] for pair in per_pair}
@@ -2239,9 +2329,8 @@ def phase_tune_serve(errs, plan, seed=3, n_requests=8,
           f"{predicted} (waves {dict(waves)}); greedy streams equal to "
           f"uniform pallas_int8_{TRAIN_SPLITS} for {same} of {n_requests} "
           "requests")
-    if rec["waves"] != rec_uniform["waves"] or launches != {
-            "split_gemm": predicted, "split_gemm_fused": 0,
-            "split_gemm_v1": 0, "gather_pairs_kmajor": 0}:
+    if rec["waves"] != rec_uniform["waves"] or \
+            launches != k1_launches(predicted):
         fail(f"plan serve launches {launches} != predicted {predicted}")
     if same != n_requests:
         fail(f"greedy streams under the plan equal uniform "
@@ -2408,7 +2497,7 @@ def phase_obs(served, trained, **overrides):
     if len(box["losses"]) != OBS_STEPS or not all(
             np.isfinite(box["losses"])):
         fail(f"obs: train losses {box['losses']}")
-    if execs != OBS_STEPS * per_step or execs != launches["split_gemm"]:
+    if execs != OBS_STEPS * per_step or launches != k1_launches(execs):
         fail(f"obs: sum of site_exec {execs} != {OBS_STEPS} x {per_step} "
              f"or != K1's launches {launches}")
     rc, text = _obs_cli("report", directory, "--check")
@@ -2459,7 +2548,7 @@ def phase_obs(served, trained, **overrides):
         ops.LAUNCHES[key] = 0
     syncs = {"native": _syncs(step, (params, state, batch)),
              "without": _syncs(plain, (params, state, batch))}
-    before = ops.LAUNCHES["split_gemm"]
+    before = dict(ops.LAUNCHES)
     execs_before = _site_exec_total(
         [dict(s, type="metric") for s in sync_run.registry.snapshot()])
     syncs["with"] = _syncs(hooked, (params, state, batch))
@@ -2467,7 +2556,9 @@ def phase_obs(served, trained, **overrides):
     hooked_execs = _site_exec_total(
         [dict(s, type="metric") for s in sync_run.registry.snapshot()]
     ) - execs_before
-    hooked_launches = ops.LAUNCHES["split_gemm"] - before
+    hooked_launches = ops.LAUNCHES["split_gemm"] - before["split_gemm"]
+    hooked_slicing = (ops.LAUNCHES["slice_operand"]
+                      - before["slice_operand"])
     sync_run.close()
     print(f"[obs] synchronizing calls in one emulated step "
           f"(set_sync_debug_mode('warn')): "
@@ -2478,10 +2569,12 @@ def phase_obs(served, trained, **overrides):
           f"step's site_exec {hooked_execs:.0f}, K1 launches "
           f"{hooked_launches}")
     if syncs["with"] != syncs["without"] or hooked_execs != per_step \
-            or hooked_launches != per_step:
+            or hooked_launches != per_step \
+            or hooked_slicing != 2 * per_step:
         fail(f"obs: the hook changed the step's synchronizing calls "
              f"({syncs}) or its counts ({hooked_execs}, "
-             f"{hooked_launches} != {per_step})")
+             f"{hooked_launches}, {hooked_slicing} slicing launches != "
+             f"{per_step})")
     # The hook's own cost, paired in one process: host clock around a
     # synchronized step, without and with the hook in turns.
     paired = {"without": [], "with": []}
@@ -2536,7 +2629,7 @@ def phase_obs(served, trained, **overrides):
           f"{same} of {len(streams)}; report --check exit {rc}")
     want_tokens = 16 * len(served["prompts"])
     if (tokens != want_tokens or serve_execs != scraped_execs
-            or serve_execs != serve_launches["split_gemm"]
+            or serve_launches != k1_launches(serve_execs)
             or serve_execs != served["launches"]
             or same != len(streams) or rc != 0):
         fail("obs: serve telemetry disagrees (tokens, site_exec, K1 "
@@ -2664,8 +2757,7 @@ def phase_warm_start(served, **overrides):
                      and i.disk_hits == 0 for i in (info, dinfo))
         if (not ok or rc != want_rc or same != len(streams)
                 or launches["split_gemm"] != served["launches"]
-                or execs != launches["split_gemm"]
-                or sum(launches.values()) != launches["split_gemm"]):
+                or launches != k1_launches(execs)):
             fail(f"warm start, {tag} run: persist {info} / {dinfo}, "
                  f"report exit {rc} (want {want_rc}), streams {same}, "
                  f"launches {launches}, site_exec {execs}")
@@ -2778,8 +2870,8 @@ def phase_control_flow(n=4096, block=256):
     print(f"[cf] sites {[name for name, *_ in got]} equal the reference's; "
           f"K1 launches {launches['split_gemm']}, hook {dict(hooked)}, "
           f"cache {prog.cache_info()}")
-    if (hooked != executed or launches["split_gemm"] != sum(executed.values())
-            or sum(launches.values()) != launches["split_gemm"]
+    if (hooked != executed
+            or launches != k1_launches(sum(executed.values()))
             or prog.cache_info()[:2] != (2, 1)):
         fail(f"control flow: launches {launches}, hook {dict(hooked)} != "
              f"executed {dict(executed)}, cache {prog.cache_info()}")
@@ -2818,7 +2910,7 @@ def phase_control_flow(n=4096, block=256):
     print(f"[cf] autograd.Function: sites {fn_sites}, K1 launches "
           f"{fn_launches}, equal to native {torch.equal(out, a @ w)}, "
           f"max |grad| {float(fa.grad.abs().max())}")
-    if (fn_sites or fn_launches or not torch.equal(out, a @ w)
+    if (fn_sites or any(ops.LAUNCHES.values()) or not torch.equal(out, a @ w)
             or float(fa.grad.abs().max()) != 0.0):
         fail("control flow: the user autograd.Function was not opaque")
 
@@ -2966,8 +3058,7 @@ def phase_entry_points(errs, ladder, n=4096):
                     f"{launches['split_gemm']}, hook {sum(hooked.values())}"
                     f", error {rel:.3e}")
         print(f"[entry] {rows[-1]}", flush=True)
-        if (not on or launches["split_gemm"] != want
-                or sum(launches.values()) != want
+        if (not on or launches != k1_launches(want)
                 or sum(hooked.values()) != sum(s.mult for s in on)):
             fail(f"entry point {name}: K1 launches {launches}, hook "
                  f"{dict(hooked)} against the sites {on}")
@@ -3258,9 +3349,7 @@ def phase_examples(errs, served):
           f", predicted {predicted} from the site report ({per_wave} a "
           f"wave of {CLI_WAVE_ROWS} rows, {per_tick} a tick x "
           f"{cli['ticks']} ticks)")
-    if launches != {"split_gemm": predicted, "split_gemm_fused": 0,
-                    "split_gemm_v1": 0, "gather_pairs_kmajor": 0} \
-            or predicted == 0:
+    if launches != k1_launches(predicted) or predicted == 0:
         fail(f"full-width CLI launches {launches} != predicted {predicted}")
     again = Engine(eng.model, eng.params, batch_slots=4, max_len=512,
                    policy=policy)
@@ -3438,6 +3527,81 @@ def phase_k1_timings(errs, launches, shapes):
             "bound_by": bound_by, "library_ms": library_ms,
             "shape": [m, k, n, s], "device_ms": dev_ms,
             "int_mm_ms": int_mm_ms})
+    ops.LAUNCHES.update(saved)
+    return rows
+
+
+#: The slicing kernel's timed operands, float32, s = 6: the train cell's
+#: (2048, 960) A and dW operand (rows along k, and the transposed view
+#: of a (960, 2048) tensor), the head's cotangent (2048, 49152) and its
+#: transposed view (49152, 2048).
+SLICE_TIMED = [((2048, 960), "rows"), ((2048, 960), "columns"),
+               ((2048, 49152), "rows"), ((49152, 2048), "columns")]
+
+
+def phase_slicing_timings(launches, s=6):
+    """The slicing kernel (``kernels.slicing.slice_operand``) at
+    ``SLICE_TIMED``: held bitwise against ``slice_matrix`` on the card,
+    event-timed, its device time (``device_ms``), the host's time per
+    call, the eager torch chain it replaces (``slice_matrix``, its plain
+    version) and its bound: bytes, the operand read once and s int8
+    planes and sigma written, at the HBM rate.  Returns its JSON rows."""
+    from repro_torch.core.ozaki import slice_matrix
+    from repro_torch.kernels import ops, slicing
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    saved = dict(ops.LAUNCHES)
+    held = slicing._launch   # the launch alone, without _SliceLayouts
+    slicing._launch = getattr(held, "__wrapped__", held)
+    rows = []
+    for (m, k), layout in SLICE_TIMED:
+        shape = (m, k) if layout == "rows" else (k, m)
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x = x if layout == "rows" else x.T
+        plan = slicing.slice_plan(m, k, *x.stride(), 4,
+                                  x.data_ptr() % 16 == 0)
+        got = slicing.slice_operand(x, s)
+        want = slice_matrix(x, s, axis=1)
+        if not (torch.equal(got[0], want[0]) and torch.equal(
+                got[1].view(torch.int64), want[1].view(torch.int64))):
+            fail(f"slice_operand differs from slice_matrix at {(m, k)} "
+                 f"{layout}")
+        del got, want
+
+        def kernel():
+            return slicing.slice_operand(x, s)
+
+        ms = timed(kernel, 20)
+        dev_ms = device_ms(kernel)
+        if dev_ms is None:
+            fail(f"the slicing kernel's device time at {(m, k)} is not "
+                 "measured")
+        kernel()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            kernel()
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        plain_ms = timed(lambda: slice_matrix(x, s, axis=1), 3)
+        bound_ms, bound_by = bound(0, m * k * 4 + s * m * k + 8 * m)
+        print(f"[time] slice_operand at (m,k)=({m},{k}) {layout} s={s} "
+              f"{plan}: {ms:.4f} ms (kernel on the device "
+              f"{fmt_ms(dev_ms)}; host {host_us:.1f} us a call), the torch "
+              f"chain (slice_matrix) {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), "
+              f"{bound_ms / dev_ms * 100:.1f} % of it", flush=True)
+        rows.append({
+            "name": "slice_operand", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/slice_operand.cu",
+            "replaces": None, "launches": launches.get("slice_operand"),
+            "ms": ms, "device_ms": dev_ms, "host_us": host_us,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "shape": [m, k, s], "layout": layout})
+        del x
+        torch.cuda.empty_cache()
+    slicing._launch = held
     ops.LAUNCHES.update(saved)
     return rows
 
@@ -3790,6 +3954,8 @@ def main():
     t_start = time.perf_counter()
     from repro_torch.configs import get_config
 
+    hold = _SliceLayouts()
+
     phase_card()
     errs = {}
     phase_init()
@@ -3850,6 +4016,10 @@ def main():
           f"{obs_launches}, warm start {warm_launches}, control flow "
           f"{cf_launches}, entry points {entry_launches}, full-width CLI "
           f"{example_launches}, v1 A/B {v1_launches}")
+    print(f"[slicing] in this process {hold.summary()}; the mesh ranks' "
+          "are in their lines")
+    if not hold.launches:
+        fail("the main paths launched no slicing kernel")
     shapes = k1_timed_shapes()
     shapes += [pair for pair in tune_pairs if pair not in shapes][:3]
     shapes += [(shape, TRAIN_SPLITS) for shape in shard_shapes
@@ -3868,7 +4038,8 @@ def main():
     shapes += [((CLI_WAVE_ROWS, k, n), 6) for arch in ("smollm_360m", "tiny")
                for k, n in serve_gemm_shapes(get_config(arch))]
     rows = (phase_k1_timings(errs, total, shapes)
-            + phase_timings(errs, total))
+            + phase_timings(errs, total)
+            + phase_slicing_timings(total))
     print(json.dumps({"kernels": rows}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
@@ -3881,6 +4052,11 @@ if __name__ == "__main__":
         ab(_FUSED_AB_RUN, "fused-ab", *sys.argv[2:])
     elif sys.argv[1:2] == ["--k1-ab"]:
         ab(_K1_AB_RUN, "k1-ab", *sys.argv[2:])
+    elif sys.argv[1:2] == ["--slicing"]:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device; --slicing runs "
+                             "only on the card")
+        print(json.dumps({"kernels": phase_slicing_timings({})}))
     elif sys.argv[1:2] == ["--k1-plans"]:
         if not torch.cuda.is_available():
             raise SystemExit("chip_smoke: no CUDA device; --k1-plans runs "

@@ -1,4 +1,4 @@
-"""Build and load the CUDA split-GEMM kernels at first use.
+"""Build and load the CUDA split-GEMM and slicing kernels at first use.
 
 The sources under ``csrc/`` are compiled with ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes``.  The
@@ -26,7 +26,7 @@ __all__ = ["load", "build_info", "NVCC_FLAGS"]
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
               / "repro_torch_kernels")
-_SOURCES = ("split_gemm.cu",)
+_SOURCES = ("split_gemm.cu", "slice_operand.cu")
 
 # sm_90a: Hopper with its architecture-specific features.  -fmad=false
 # keeps the compiler from contracting a multiply and an add into an FMA
@@ -97,6 +97,16 @@ class K1Args(ctypes.Structure):
                         for name in ("ii", "jj", "wexp")]
 
 
+class SliceArgs(ctypes.Structure):
+    """The slicing kernel's plan and operand layout (``SliceArgs`` in
+    ``csrc/slice_operand.cu``), built once per layout."""
+
+    _fields_ = [(name, ctypes.c_longlong) for name in (
+        "m", "k", "stride_m", "stride_k")] + [(name, _I) for name in (
+            "num_splits", "slice_bits", "fast_k", "vec", "tm", "tk",
+            "chunks")]
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     lib.split_gemm_launch.argtypes = [
         _P, _P, _P, _P, ctypes.POINTER(K1Args), _I, _P]
@@ -111,6 +121,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.gather_pairs_launch.argtypes = [
         _P, _P, _P, _P, _I, _I, _I, _IP, _IP, _IP, _I, _I, _P]
     lib.gather_pairs_launch.restype = _I
+    lib.slice_operand_launch.argtypes = [
+        _P, _I, _P, _P, ctypes.POINTER(SliceArgs), _I, _P]
+    lib.slice_operand_launch.restype = _I
     lib.split_gemm_error_string.argtypes = [_I]
     lib.split_gemm_error_string.restype = ctypes.c_char_p
 

@@ -39,9 +39,12 @@ nest in eager torch (pair-major, then k-tile, then the TwoSum fold) and
 are held bitwise against the Pallas kernels in interpret mode by the
 CPU tests; ``chip_smoke.py`` holds the CUDA kernels bitwise against the
 plain versions on the card.  ``LAUNCHES`` counts kernel launches.
-:func:`ozaki_matmul` opens the layer span ``ozaki`` around each call,
-and inside it ``ozaki.slice`` (both operands' slicing), ``ozaki.kernel``
-(the launch) and ``ozaki.combine`` (:mod:`repro_torch.obs.trace`).
+:func:`ozaki_matmul` slices each operand with
+:func:`repro_torch.kernels.slicing.slice_operand` (one launch of the
+slicing kernel per operand on the card, ``slice_matrix`` on the CPU).
+It opens the layer span ``ozaki`` around each call, and inside it
+``ozaki.slice`` (both operands' slicing), ``ozaki.kernel`` (the
+launch) and ``ozaki.combine`` (:mod:`repro_torch.obs.trace`).
 
 The pair schedule is built once per ``(s, slice_bits)`` (and, for K3's
 gather, once per device) and shared by all three wrappers.
@@ -56,7 +59,7 @@ import numpy as np
 import torch
 
 from ..core.ozaki import (SLICE_BITS, _two_sum, int8_matmul_exact,
-                          is_complex_problem, pair_indices, slice_matrix)
+                          is_complex_problem, pair_indices)
 from ..obs.trace import span
 from . import _build, slicing, tile_model
 
@@ -79,7 +82,7 @@ __all__ = [
 
 #: Launches of each CUDA kernel, counted where the wrapper launches it.
 LAUNCHES = {"split_gemm": 0, "split_gemm_fused": 0, "split_gemm_v1": 0,
-            "gather_pairs_kmajor": 0}
+            "gather_pairs_kmajor": 0, "slice_operand": 0}
 
 
 def pair_schedule_arrays(num_splits: int, slice_bits: int):
@@ -537,13 +540,13 @@ def ozaki_matmul(a, b, num_splits: int = 6, accumulator: str = "df32",
                                           block_k=block_k)
         else:
             with span("ozaki.slice"):
-                a_sl, sigma_a = slice_matrix(a, num_splits, axis=1,
-                                             slice_bits=slice_bits)
+                a_sl, sigma_a = slicing.slice_operand(a, num_splits,
+                                                      slice_bits)
                 # B's slices k-major, (s, n, k): bit for bit the
                 # transpose of slicing B along axis 0, written k-major by
-                # the same pass.
-                b_sl_t, sigma_b = slice_matrix(b.mT, num_splits, axis=1,
-                                               slice_bits=slice_bits)
+                # the same launch.
+                b_sl_t, sigma_b = slicing.slice_operand(b.mT, num_splits,
+                                                        slice_bits)
             with span("ozaki.kernel"):
                 hi, lo = split_gemm_kmajor(a_sl, b_sl_t, num_splits,
                                            slice_bits=slice_bits,

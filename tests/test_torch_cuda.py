@@ -8,13 +8,18 @@ machine that has only the port's dependencies:
         tests/test_torch_cuda.py
 """
 
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import get_backend
 from repro_torch.core.ozaki import slice_matrix
-from repro_torch.kernels import ops, slicing, tile_model
+from repro_torch.kernels import _build, ops, slicing, tile_model
 
 # One intra-op thread: tier-1 runs several test processes at once,
 # and torch's default thread pool per process oversubscribes the CPU.
@@ -479,3 +484,215 @@ def test_gloo_reduces_cuda_tensors_of_ranks_sharing_a_card():
         assert np.array_equal(got["sum"], np.full(1000, 3.0))
         assert np.array_equal(got["a"], np.arange(10.0) * 1.5)
         assert np.array_equal(got["b"], np.ones((3, 3)))
+
+
+# ---- the slicing kernel (kernels.slicing.slice_operand) ----------------
+
+def _train_operands(tokens=2048):
+    """(rows, k) of every operand an emulated SmolLM-360M train step of
+    ``tokens`` tokens slices: A (m, k) and B^T (n, k) of each forward
+    product (tokens, k, n) of the projections, the MLP and the head, and
+    of its cotangents dW (n, tokens, k) and dX (tokens, n, k)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("smollm_360m")
+    d = cfg.d_model
+    kn = {(d, cfg.q_dim), (d, cfg.kv_dim), (cfg.q_dim, d), (d, cfg.d_ff),
+          (cfg.d_ff, d), (d, cfg.vocab_size)}
+    gemms = {shape for k, n in kn for shape in
+             ((tokens, k, n), (n, tokens, k), (tokens, n, k))}
+    return sorted({(m, k) for m, k, _ in gemms}
+                  | {(n, k) for _, k, n in gemms})
+
+
+def _held(x, num_splits, slice_bits=6, sigma_only=False):
+    """slice_operand on the card against slice_matrix on the card: the
+    slices' and sigma's bits, one launch counted."""
+    before = ops.LAUNCHES["slice_operand"]
+    got_sl, got_sigma = slicing.slice_operand(x, num_splits, slice_bits)
+    assert ops.LAUNCHES["slice_operand"] == before + 1
+    want_sl, want_sigma = slice_matrix(x, num_splits, axis=1,
+                                       slice_bits=slice_bits)
+    assert got_sl.is_contiguous() and got_sl.shape == want_sl.shape
+    assert got_sl.dtype == torch.int8 and got_sigma.dtype == torch.float64
+    assert torch.equal(got_sigma.view(torch.int64),
+                       want_sigma.view(torch.int64))
+    if not sigma_only:
+        assert torch.equal(got_sl, want_sl)
+
+
+def _views(x):
+    """x (m, k) as the rows it is, and as the transposed view of its
+    (k, m) copy, the two layouts the offload hands over."""
+    return {"rows": x, "columns": x.T.contiguous().T}
+
+
+def _scaled(m, k, seed, dtype):
+    gen = np.random.default_rng(seed)
+    x = gen.standard_normal((m, k)) * np.exp2(gen.integers(-20, 20, (m, 1)))
+    return torch.from_numpy(x).to("cuda", dtype)
+
+
+@pytest.mark.parametrize("layout", ["rows", "columns"])
+@pytest.mark.parametrize("m,k", _train_operands())
+def test_slice_operand_at_the_train_cell_operands(m, k, layout):
+    _held(_views(_scaled(m, k, m + k, torch.float32))[layout], 6)
+
+
+@pytest.mark.parametrize("layout", ["rows", "columns", "real", "imag",
+                                    "real_columns"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,k", [(1, 1), (37, 130), (100, 33), (5, 1000),
+                                 (64, 27000), (40, 7000)])
+def test_slice_operand_at_awkward_shapes_and_strides(m, k, dtype, layout):
+    # k not a multiple of 16, one element, complex views (stride 2),
+    # and panels too large for shared memory (k streamed in chunks).
+    x = _scaled(m, k, 3, dtype)
+    cplx = torch.complex(x, _scaled(m, k, 4, dtype))
+    x = {"real": cplx.real, "imag": cplx.imag,
+         "real_columns": cplx.T.contiguous().T.real, **_views(x)}[layout]
+    for s in (1, 3, 6, 9):
+        _held(x, s)
+    _held(x, 4, slice_bits=7)
+
+
+@pytest.mark.parametrize("layout", ["rows", "columns"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slice_operand_at_edge_values(dtype, layout):
+    # Zero rows (sigma 1, all slices 0), subnormals of both types, an
+    # exact power of two whose log2 lands one ulp off (2**-59), ties.
+    rows = np.zeros((8, 200))
+    rows[1, 3] = 2.0 ** -59
+    rows[2] = np.ldexp(1.0, -1060) * np.arange(200)
+    rows[3] = float(np.float32(1e-40)) * np.arange(-100, 100)
+    rows[4] = (np.arange(200) - 100) / 128.0 + 1.0 / 4096.0
+    rows[5, ::7] = -(2.0 ** 40)
+    rows[6] = np.ldexp(1.0, np.arange(200) % 60 - 30)
+    rows[7] = np.finfo(np.float32).max / np.arange(1, 201)
+    x = _views(torch.from_numpy(rows).to("cuda", dtype))[layout]
+    for s in (1, 3, 6, 9):
+        _held(x, s)
+
+
+def test_slice_operand_across_amax_exponents():
+    # F4's 2**20 amax values over the whole float64 exponent range,
+    # subnormals included, one element a row.
+    gen = np.random.default_rng(11)
+    n = 1 << 20
+    bits = (gen.integers(0, 2047, n, dtype=np.int64) << 52) | \
+        gen.integers(0, 1 << 52, n, dtype=np.int64)
+    x = torch.from_numpy(bits.view(np.float64).reshape(-1, 1).copy())
+    _held(x.cuda(), 6)
+    _held(x.cuda().T.contiguous().T, 3)
+
+
+@pytest.mark.parametrize("layout", ["rows", "columns"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slice_operand_sigma_on_rows_with_inf_and_nan(dtype, layout):
+    # Only sigma is compared: torch's cast of NaN to int8 has no defined
+    # value.
+    x = _scaled(6, 50, 9, dtype)
+    x[0, 4] = float("inf")
+    x[1, 0] = -float("inf")
+    x[2, 7] = float("nan")
+    x[3, 1], x[3, 2] = float("nan"), float("inf")
+    x[4] = float("nan")
+    _held(_views(x)[layout], 6, sigma_only=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_slice_operand_widens_half_types_exactly(dtype):
+    x = _scaled(37, 130, 8, torch.float32).clamp(-6e4, 6e4).to(dtype)
+    for view in _views(x).values():
+        _held(view, 6)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_ozaki_matmul_launches_the_slicing_kernel_per_operand(fuse):
+    a, b = _operands(64, 96, 48, 12, torch.float32)
+    before = dict(ops.LAUNCHES)
+    ops.ozaki_matmul(a, b, 6, fuse_slicing=fuse)
+    ops.ozaki_matmul(a, b.T.contiguous().T, 6, fuse_slicing=fuse)
+    assert ops.LAUNCHES["slice_operand"] - before["slice_operand"] == \
+        (0 if fuse else 4)
+
+
+# The slicing kernel's first launch in a fresh process, at one layout,
+# held against slice_matrix: the launcher raises the shared-memory limit
+# only once per process and size.
+_FIRST_LAUNCH = """
+import sys, torch
+from repro_torch.core.ozaki import slice_matrix
+from repro_torch.kernels import slicing
+m, k = int(sys.argv[1]), int(sys.argv[2])
+x = torch.randn(m, k, device="cuda", generator=torch.Generator(
+    device="cuda").manual_seed(5))
+got, want = slicing.slice_operand(x, 6), slice_matrix(x, 6, axis=1)
+assert torch.equal(got[0], want[0])
+assert torch.equal(got[1].view(torch.int64), want[1].view(torch.int64))
+"""
+
+
+@pytest.mark.parametrize("m,k", [(2048, 2816), (4224, 768)])
+def test_slice_operand_at_panels_over_the_default_shared_memory(m, k):
+    # slice_plan gives these float32 operands (reduced_100m's down
+    # projection at 2,048 tokens, and k = 768 at m >= 4,224) panels of
+    # 45,056 and 49,152 bytes: more than a launch may take before the
+    # limit is raised, 48 KB less the kernel's 6 KB of static memory.
+    # Run first in their process, so no earlier launch raised it.
+    p = slicing.slice_plan(m, k, k, 1, 4, True)
+    assert 48 * 1024 - 6 * 1024 < p.tm * p.tk * 4 <= 48 * 1024
+    src = pathlib.Path(slicing.__file__).resolve().parents[2]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [
+        str(src), os.environ.get("PYTHONPATH")])))
+    done = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH, str(m),
+                           str(k)], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+
+
+def _forced_plans(x):
+    """slice_plan's plan for x, then every panel orientation, rows per
+    CTA from 1 to 256 with k in chunks of 16 and 48 or whole, and one
+    panel of the full shared-memory limit; the copy width stays the
+    plan's along its own axis and is one element across it."""
+    m, k = x.shape
+    item = x.element_size()
+    plan = slicing.slice_plan(m, k, *x.stride(), item,
+                              x.data_ptr() % 16 == 0)
+    kp = -(-k // slicing.SLICE_UNIT) * slicing.SLICE_UNIT
+    sizes = [(tm, tk) for tm in (1, 2, 8, 32, 256) for tk in (16, 48, kp)]
+    sizes.append((16, slicing.SLICE_SMEM_MAX // (16 * item)))
+    plans = {plan}
+    for fast_k in (True, False):
+        vec = plan.vec if fast_k == plan.fast_k else 1
+        for tm, tk in sizes:
+            if (tk if fast_k else tm) % vec == 0 and \
+                    tm * tk * item <= slicing.SLICE_SMEM_MAX:
+                plans.add(slicing.SlicePlan(fast_k, vec, tm, tk, -(-k // tk)))
+    return sorted(plans, key=repr)
+
+
+@pytest.mark.parametrize("layout", ["rows", "columns", "real", "imag",
+                                    "real_columns"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,k", [(1, 1), (37, 130), (20, 48), (300, 70)])
+def test_slice_operand_under_forced_plans(m, k, dtype, layout):
+    # The kernel's loop nest under plans slice_plan does not pick for
+    # this layout: lanes, warps and chunks in every combination it takes.
+    x = _scaled(m, k, m + k, dtype)
+    if m > 3:
+        x[3] = 0.0
+    cplx = torch.complex(x, _scaled(m, k, 4, dtype))
+    x = {"real": cplx.real, "imag": cplx.imag,
+         "real_columns": cplx.T.contiguous().T.real, **_views(x)}[layout]
+    want_sl, want_sigma = slice_matrix(x, 6, axis=1)
+    for p in _forced_plans(x):
+        args = _build.SliceArgs(
+            m=m, k=k, stride_m=x.stride(0), stride_k=x.stride(1),
+            num_splits=6, slice_bits=6, fast_k=int(p.fast_k), vec=p.vec,
+            tm=p.tm, tk=p.tk, chunks=p.chunks)
+        got_sl, got_sigma = slicing._launch(x, args)
+        assert torch.equal(got_sigma.view(torch.int64),
+                           want_sigma.view(torch.int64)), p
+        assert torch.equal(got_sl, want_sl), p
