@@ -1841,7 +1841,19 @@ class _OffloadMode(TorchFunctionMode):
             self.on_site_event(dict(self.payloads[site.name]))
 
     def run_site(self, site: Site, a3, b3, out_dtype):
-        """One batched product through ``site``'s engine, or natively."""
+        """One batched product through ``site``'s engine, or natively.
+
+        A cotangent site is recorded from its product's first run.  A
+        loop whose iterations give the product other extents (an
+        expert's routed tokens differ from layer to layer) has the
+        product of this run decided afresh on its own extents, as the
+        forward product was, so the gates read what runs."""
+        B, M, K = a3.shape
+        N = b3.shape[2]
+        if (site.m, site.k, site.n, max(site.batch, 1)) != (M, K, N, B):
+            site = _classify(_Dims(M, K, N, B, a3.shape, b3.shape),
+                             site.dtype, self.policy, site.name, site.mult,
+                             site.spmd_axes)
         if self._engine_runs(site):
             with span("offload.site"):
                 self._fire(site)

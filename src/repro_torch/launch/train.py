@@ -57,6 +57,14 @@ when the step loop ends; ``python -m repro_torch.obs export`` renders
 them as a Chrome trace.  Without the switch the run's file is as
 before.
 
+An ``--arch`` with experts (``mellum2_12b_a2_5b_ep8``, Mellum2-12B-A2.5B
+at its published widths as one expert-parallel rank of eight, or its
+CPU-sized ``mellum2_tiny``) trains a :class:`~repro_torch.models.MoEModel`
+(routed experts, sliding and full attention layers) through the same
+step and offload; its expert layers' products change shape with the
+routing, so the offload decides them afresh each step.  It has no mesh
+form.
+
 ``--mesh dp=N`` runs the same step data-parallel over N ranks
 (:func:`build_sharded_train_step`), one process per mesh position
 (:mod:`repro_torch.shard.launch`): the trainer starts them itself (or
@@ -94,7 +102,7 @@ import torch.distributed as dist
 from .._device import resolve_device
 from ..configs import get_config
 from ..core import PrecisionPolicy, get_backend, offload
-from ..models import Model
+from ..models import Model, MoEModel
 from ..core.intercept import spmd_scope
 from ..obs import (MetricsRun, MetricsServer, NumericsMonitor, Registry,
                    activate, get_logger, push_snapshot, span)
@@ -379,6 +387,9 @@ def main(argv: Optional[Sequence[str]] = None, device=None,
         raise SystemExit("[train] --plan and --backend are both "
                          "precision configurations; pass one (with "
                          "--tune, --backend sets the probe family)")
+    if args.mesh and _config(args).num_experts:
+        raise SystemExit(f"[train] {args.arch} has experts; the mesh "
+                         "rules shard only the dense model's leaves")
     dev = resolve_device(device if device is not None else args.device)
     if args.mesh and not dist.is_initialized():
         world = mesh_ranks(args.mesh)
@@ -403,13 +414,19 @@ def _main_rank(argv, device, want_report):
     return losses, report
 
 
-def _train(args, dev, report) -> List[float]:
-    if args.mesh:
-        dev = rank_device(dev)
+def _config(args):
     cfg = get_config(args.arch)
     if args.overrides:
         cfg = cfg.replace(**json.loads(args.overrides))
-    model = Model(cfg, device=dev, seed=args.seed)
+    return cfg
+
+
+def _train(args, dev, report) -> List[float]:
+    if args.mesh:
+        dev = rank_device(dev)
+    cfg = _config(args)
+    model = (MoEModel if cfg.num_experts else Model)(cfg, device=dev,
+                                                     seed=args.seed)
     opt = AdamW(lr=args.lr)
     data = SyntheticText(cfg.vocab_size, args.seq_len,
                          args.global_batch, seed=args.seed)

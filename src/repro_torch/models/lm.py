@@ -352,7 +352,7 @@ class Model(nn.Module):
     def params(self) -> dict:
         """The parameter dict the programs take (the reference's tree)."""
         out = {"embed": self.embed,
-               "blocks": {key: self.blocks[key] for key in _BLOCK_KEYS},
+               "blocks": {key: self.blocks[key] for key in self.blocks},
                "final_norm": self.final_norm}
         if not self.cfg.tie_embeddings:
             out["lm_head"] = self.lm_head
@@ -364,7 +364,7 @@ class Model(nn.Module):
         with torch.no_grad():
             for key, val in params.items():
                 if key == "blocks":
-                    for bkey in _BLOCK_KEYS:
+                    for bkey in self.blocks:
                         self.blocks[bkey].copy_(val[bkey])
                 else:
                     getattr(self, key).copy_(val)

@@ -31,7 +31,7 @@ from repro_torch.models import Model
 from repro_torch.shard import train_state_specs
 from repro_torch.train import AdamW, CheckpointError, checkpoint
 from repro_torch.train.checkpoint import tree_flatten, tree_unflatten
-from torch_parity import same_bits
+from torch_parity import reference_config, same_bits
 
 JOIN_TIMEOUT = 120
 
@@ -224,7 +224,7 @@ class TestTrainLoopIntegration:
         # own shard) restore in the reference to the state the port
         # restores, bit for bit.
         d = lineages["dirs"]["a"]
-        model = ModelRef(LMConfigRef(**vars(get_config("tiny"))))
+        model = ModelRef(reference_config(get_config("tiny")))
         params = model.init_params(jax.random.PRNGKey(0))
         ref = checkpoint_ref.restore(d, 4, (params,
                                             AdamWRef().init(params)))

@@ -38,6 +38,7 @@ from repro_torch.configs import LMConfig, available_configs, get_config
 from repro_torch.core import PrecisionPolicy, site_report
 from repro_torch.models import Model, params_from_reference
 from repro_torch.serve import PagedKVCache
+from torch_parity import reference_config
 
 # One intra-op thread: tier-1 runs several test processes at once,
 # and torch's default thread pool per process oversubscribes the CPU.
@@ -260,18 +261,28 @@ class TestSiteReports:
 
 class TestConfigs:
     def test_presets_equal_the_reference(self):
+        # The port adds presets of its own (the expert model's) and keys
+        # the reference lacks (layer kinds, YaRN, experts): every
+        # reference preset is there, equal on the reference's keys, with
+        # the port's own keys at their dense defaults.
         from repro.configs import available_configs as names_ref
         from repro.configs import get_config as get_ref
-        assert available_configs() == names_ref()
-        for name in available_configs():
-            assert vars(get_config(name)) == vars(get_ref(name))
+        assert set(names_ref()) <= set(available_configs())
+        dense = LMConfig()
+        for name in names_ref():
+            port, want = vars(get_config(name)), vars(get_ref(name))
+            assert {k: port[k] for k in want} == want
+            assert {k: v for k, v in port.items() if k not in want} == {
+                k: v for k, v in vars(dense).items() if k not in want}
             assert get_config(name).num_params() == \
                 get_ref(name).num_params()
+        assert {n for n in available_configs() if n not in names_ref()} == {
+            n for n in available_configs() if get_config(n).num_experts}
 
     def test_init_shapes_and_zero_head(self):
         cfg = get_config("tiny")
         port = Model(cfg, device="cpu", seed=3)
-        ref = ModelRef(LMConfigRef(**vars(cfg)))
+        ref = ModelRef(reference_config(cfg))
         shapes = jax.tree_util.tree_map(
             lambda a: tuple(a.shape), ref.init_params(jax.random.PRNGKey(0)))
         got = {k: (tuple(v.shape) if k != "blocks" else
