@@ -449,7 +449,9 @@ def phase_k1_plans(errs):
     """K1 bitwise against its plain version under every plan
     ``tile_model.k1_plans`` gives, through ``split_gemm`` and
     ``split_gemm_kmajor``, at ``k1_shapes()`` x ``K1_SPLITS``; the k-major
-    slices equal the axis-0 slices transposed.  Returns the plans held."""
+    slices equal the axis-0 slices transposed; K1's epilogue
+    (``split_gemm_kmajor_combined``, float32 and float64) bitwise
+    ``ops.combine`` of the held pair.  Returns the plans held."""
     from repro_torch.core.ozaki import slice_matrix
     from repro_torch.kernels import ops, tile_model
 
@@ -460,7 +462,7 @@ def phase_k1_plans(errs):
         b = torch.from_numpy(gen.standard_normal((k, n))).cuda()
         for s in K1_SPLITS:
             bk = tile_model.select_tiles(m, k, n, s).block_k
-            a_sl, _ = slice_matrix(a, s, axis=1)
+            a_sl, sig_a = slice_matrix(a, s, axis=1)
             b_sl, sig = slice_matrix(b, s, axis=0)
             b_t, sig_t = slice_matrix(b.mT, s, axis=1)
             if not (b_t.is_contiguous() and torch.equal(
@@ -473,13 +475,22 @@ def phase_k1_plans(errs):
                     a_sl, b_t, s, block_k=bk, plan=plan), want, errs, case)
                 check("split_gemm", ops.split_gemm(
                     a_sl, b_sl, s, block_k=bk, plan=plan), want, errs, case)
+                for dtype in (torch.float32, torch.float64):
+                    got = ops.split_gemm_kmajor_combined(
+                        a_sl, b_t, sig_a, sig_t, s, dtype, block_k=bk,
+                        plan=plan)
+                    if not bits_equal(got, ops.combine(*want, sig_a, sig_t,
+                                                       s, dtype)):
+                        fail(f"K1's epilogue differs from the torch "
+                             f"combine at {case}, {dtype}")
                 held.add((plan.block_m, plan.block_n, plan.resident))
     torch.cuda.synchronize()
     print(f"[kernels] K1 bitwise equal to its plain version under every "
           f"plan ({len(held)} tile/mode pairs) through split_gemm and "
           f"split_gemm_kmajor, at {len(k1_shapes())} shapes x s in "
           f"{K1_SPLITS}; k-major slices of B == the axis-0 slices "
-          f"transposed, contiguous, same sigma")
+          f"transposed, contiguous, same sigma; the epilogue's float32 "
+          f"and float64 products == the torch combine's")
     return held
 
 
@@ -1064,9 +1075,12 @@ def train_gemm_shapes(cfg, tokens):
 
 
 def phase_k1_train_shapes(errs, shapes, s=TRAIN_SPLITS, tag="train"):
-    """K1 bitwise against its plain version, through the k-major entry
-    the main paths call, at every shape of ``shapes``: (m, k, n) at
-    ``s`` splits, or ((m, k, n), s) pairs (a plan's)."""
+    """K1 bitwise against its plain version at every shape of ``shapes``:
+    (m, k, n) at ``s`` splits, or ((m, k, n), s) pairs (a plan's).  The
+    pair entry ``split_gemm_kmajor`` against ``split_gemm_kmajor_plain``,
+    and the entry the main paths call, ``split_gemm_kmajor_combined``
+    (K1's epilogue, float32 and float64 products, the slicing's sigma),
+    against :func:`ops.combine` of that plain pair."""
     from repro_torch.core.ozaki import slice_matrix
     from repro_torch.kernels import ops, tile_model
 
@@ -1078,17 +1092,27 @@ def phase_k1_train_shapes(errs, shapes, s=TRAIN_SPLITS, tag="train"):
         a = torch.from_numpy(gen.standard_normal((m, k), np.float32)).cuda()
         b = torch.from_numpy(gen.standard_normal((k, n), np.float32)).cuda()
         bk = tile_model.select_tiles(m, k, n, splits).block_k
-        a_sl, _ = slice_matrix(a, splits, axis=1)
-        b_t, _ = slice_matrix(b.mT, splits, axis=1)
+        a_sl, sig_a = slice_matrix(a, splits, axis=1)
+        b_t, sig_b = slice_matrix(b.mT, splits, axis=1)
+        want = ops.split_gemm_kmajor_plain(a_sl, b_t, splits, block_k=bk)
         check("split_gemm",
               ops.split_gemm_kmajor(a_sl, b_t, splits, block_k=bk),
-              ops.split_gemm_kmajor_plain(a_sl, b_t, splits, block_k=bk),
-              errs, (m, k, n, splits))
-        del a, b, a_sl, b_t
+              want, errs, (m, k, n, splits))
+        for dtype in (torch.float32, torch.float64):
+            got = ops.split_gemm_kmajor_combined(a_sl, b_t, sig_a, sig_b,
+                                                 splits, dtype, block_k=bk)
+            if not bits_equal(got, ops.combine(*want, sig_a, sig_b, splits,
+                                               dtype)):
+                fail(f"K1's epilogue differs from the torch combine at "
+                     f"{(m, k, n, splits)}, {dtype}")
+            del got
+        del a, b, a_sl, b_t, want
     torch.cuda.synchronize()
     ops.LAUNCHES.update(saved)
-    print(f"[{tag}] K1 bitwise equal to its plain version (k-major entry) "
-          f"at the {len(pairs)} ((m, k, n), s) pairs {pairs}")
+    print(f"[{tag}] K1 bitwise equal to its plain version (k-major pair "
+          f"entry; the combined entry's float32 and float64 products == "
+          f"the torch combine of the plain pair) at the {len(pairs)} "
+          f"((m, k, n), s) pairs {pairs}")
 
 
 class _K1Shapes:
@@ -3473,12 +3497,24 @@ def bound(ops_count, nbytes):
                                 else "bytes")
 
 
+def timed_out_dtype(m, k, n, s):
+    """The product dtype the main paths give K1 at a timed shape: float64
+    at MuST's block GEMMs and the entry points' (float64 operands),
+    float32 at the LM's."""
+    must = m == k == 256 and n in (256, 4096)
+    entry = s == ENTRY_SPLITS and (m, k, n) in (
+        (4096, 4096, 4096), (4096, ENTRY_BATCH * 4096, 4096))
+    return torch.float64 if must or entry else torch.float32
+
+
 def phase_k1_timings(errs, launches, shapes):
-    """K1 at ``k1_timed_shapes()``: event-timed through the k-major entry
-    the main paths call, its device time (``device_ms``), its bound (int8 ops
-    2*m*n*k*P against bytes s*(m*k + k*n) + 8*m*n), the FP64
-    torch.matmul it stands in for, the P pair products as torch._int_mm,
-    and its plain version.  Returns its JSON rows."""
+    """K1 at ``k1_timed_shapes()``: event-timed through the entry the main
+    paths call, ``split_gemm_kmajor_combined`` with the product dtype
+    ``timed_out_dtype`` gives, its device time (``device_ms``), its bound
+    (int8 ops 2*m*n*k*P against bytes s*(m*k + k*n) + 4*m*n, 8*m*n for a
+    float64 product), the FP64 torch.matmul it stands in for, the P pair
+    products as torch._int_mm, and its plain version (plain K1 and the
+    torch combine).  Returns its JSON rows."""
     from repro_torch.core.ozaki import num_pair_gemms, slice_matrix
     from repro_torch.kernels import ops, tile_model
 
@@ -3486,19 +3522,21 @@ def phase_k1_timings(errs, launches, shapes):
     saved = dict(ops.LAUNCHES)
     rows = []
     for (m, k, n), s in shapes:
+        dtype = timed_out_dtype(m, k, n, s)
         a = torch.from_numpy(gen.standard_normal((m, k))).cuda()
         b = torch.from_numpy(gen.standard_normal((k, n))).cuda()
         pairs = num_pair_gemms(s)
         bk = tile_model.select_tiles(m, k, n, s).block_k
         plan = tile_model.k1_plan(m, k, n, s, bk)
-        a_sl, _ = slice_matrix(a, s, axis=1)
-        b_t, _ = slice_matrix(b.mT, s, axis=1)
+        a_sl, sig_a = slice_matrix(a.to(dtype), s, axis=1)
+        b_t, sig_b = slice_matrix(b.to(dtype).mT, s, axis=1)
         ia = [a_sl[i].contiguous() for i in range(s)]
         ib = [b_t[j].T.contiguous() for j in range(s)]
         ii, jj = tile_model.pair_schedule(s)
 
         def kernel():
-            return ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk)
+            return ops.split_gemm_kmajor_combined(a_sl, b_t, sig_a, sig_b, s,
+                                                  dtype, block_k=bk)
 
         ms = timed(kernel, 50)
         dev_ms = device_ms(kernel)
@@ -3508,13 +3546,16 @@ def phase_k1_timings(errs, launches, shapes):
         int_mm_ms = timed(lambda: [torch._int_mm(ia[i], ib[j])
                                    for i, j in zip(ii, jj)], 10)
         ops_count = 2 * m * n * k * pairs
-        bound_ms, bound_by = bound(ops_count, s * (m * k + k * n) + 8 * m * n)
-        plain_ms = timed(lambda: ops.split_gemm_kmajor_plain(
-            a_sl, b_t, s, block_k=bk), 3)
-        print(f"[time] split_gemm (K1) at (m,k,n)=({m},{k},{n}) s={s} "
-              f"{plan_label(plan)}: {ms:.4f} ms (kernel on the device "
-              f"{fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), f64 torch.matmul "
+        out_bytes = torch.empty((), dtype=dtype).element_size() * m * n
+        bound_ms, bound_by = bound(ops_count,
+                                   s * (m * k + k * n) + out_bytes)
+        plain_ms = timed(lambda: ops.split_gemm_kmajor_combined_plain(
+            a_sl, b_t, sig_a, sig_b, s, dtype, block_k=bk), 3)
+        out = str(dtype).removeprefix("torch.")
+        print(f"[time] split_gemm (K1, {out} product) at (m,k,n)="
+              f"({m},{k},{n}) s={s} {plan_label(plan)}: {ms:.4f} ms (kernel "
+              f"on the device {fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), f64 torch.matmul "
               f"{library_ms:.4f} ms, {pairs} torch._int_mm {int_mm_ms:.4f} "
               f"ms, {ops_count / ms / 1e9:.1f} int8 TOPS", flush=True)
         rows.append({
@@ -3525,7 +3566,7 @@ def phase_k1_timings(errs, launches, shapes):
             "max_abs_err": errs["split_gemm"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
-            "shape": [m, k, n, s], "device_ms": dev_ms,
+            "shape": [m, k, n, s], "out_dtype": out, "device_ms": dev_ms,
             "int_mm_ms": int_mm_ms})
     ops.LAUNCHES.update(saved)
     return rows

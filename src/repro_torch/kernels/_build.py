@@ -87,14 +87,22 @@ def _compile(out: pathlib.Path) -> str:
 MAX_PAIRS = 136
 
 
+#: K1's output kinds (``K1_OUT_*`` in ``csrc/split_gemm.cu``): the pair
+#: (hi, lo), or the product finished in its epilogue in float32 or
+#: float64.
+K1_OUT_PAIR, K1_OUT_F32, K1_OUT_F64 = 0, 1, 2
+
+
 class K1Args(ctypes.Structure):
     """K1's launch arguments after the pointers (``K1Args`` in
-    ``csrc/split_gemm.cu``), built once per launch shape and plan."""
+    ``csrc/split_gemm.cu``), built once per launch shape, plan and
+    output kind."""
 
     _fields_ = [(name, _I) for name in (
         "m", "k", "n", "block_k", "num_pairs", "block_m", "block_n",
         "resident")] + [(name, _I * MAX_PAIRS)
-                        for name in ("ii", "jj", "wexp")]
+                        for name in ("ii", "jj", "wexp")] + [
+        ("out_kind", _I), ("deferred", ctypes.c_double)]
 
 
 class SliceArgs(ctypes.Structure):
@@ -109,7 +117,7 @@ class SliceArgs(ctypes.Structure):
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.split_gemm_launch.argtypes = [
-        _P, _P, _P, _P, ctypes.POINTER(K1Args), _I, _P]
+        _P, _P, _P, _P, _P, _P, ctypes.POINTER(K1Args), _I, _P]
     lib.split_gemm_launch.restype = _I
     lib.split_gemm_fused_launch.argtypes = [
         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _IP, _IP, _IP,

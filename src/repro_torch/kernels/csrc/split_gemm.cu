@@ -175,10 +175,13 @@ __device__ __forceinline__ void load_b_frag(uint32_t (&b)[4],
 //
 // Inputs: a_sl (s, m, k) and, k-major, b_sl_t (s, n, k) int8 slice
 // stacks (ozaki_matmul slices B k-major directly: no transpose pass).
+// Output: the pair (hi, lo), or, in ozaki_matmul's float32 and float64
+// calls, the finished product (see the epilogue below).
 //
 // Bound on an H100 SXM: int8 ops 2*m*n*k*P (P = s(s+1)/2) at 1,979 TOPS
-// dense, against bytes s*(m*k + k*n) + 8*m*n at 3.35 TB/s; the ops are
-// the larger at every shape the main paths give it.  What held K1's
+// dense, against bytes s*(m*k + k*n) + 8*m*n at 3.35 TB/s (4*m*n for a
+// finished float32 product); the ops are the larger at every shape the
+// main paths give it.  What held K1's
 // first, simple design far above that bound: mma.sync fed by synchronous
 // staging with a byte-wise transpose of B, every CTA re-reading the slice
 // layers once per pair (P times, not s), and one serial chain of
@@ -215,6 +218,20 @@ __device__ __forceinline__ void load_b_frag(uint32_t (&b)[4],
 // per-pair chain (eight dependent wgmmas and a fold, one CTA per SM);
 // on the LM's large GEMMs the L2 reads (~5 TB/s reached), on its small
 // grids one CTA's chain of chunks (~0.6 us each).
+//
+// Epilogue.  Each thread holds its elements' hi and lo in registers at
+// the end.  With K1_OUT_PAIR it stores them; with K1_OUT_F32 or _F64
+// (K1Args::out_kind, a runtime branch, so the instances stay
+// split_gemm_kernel<WM,BN,RESIDENT>) it stores the finished product
+// instead, repeating the torch combine that ozaki_matmul ran after the
+// kernel, one rounding for one:
+//   c = (hi + lo) * deferred;  sc = out(sigma_a[row] * sigma_b[col]);
+//   store c * sc
+// with deferred = 2**(-slice_bits*(s+1)), the sigma product in float64
+// and everything else in the output's type (hi and lo widen exactly to
+// float64).  Each step is one _rn intrinsic, so the bits are the torch
+// combine's.  That drops five elementwise kernels over (m, n) and the
+// (hi, lo) round trip through device memory per call.
 //
 // One k-tile's int32 partial is exact, so the order of the MMAs inside
 // it is free; only the folds are ordered.
@@ -396,6 +413,38 @@ __device__ __forceinline__ void fold_all(float (&hi)[N], float (&lo)[N],
   for (int i = 0; i < N; ++i) fold(hi[i], lo[i], acc[i], w);
 }
 
+// What K1's epilogue writes (K1Args::out_kind): the pair (hi, lo) as it
+// stands, or the finished product in float32 or float64.
+constexpr int K1_OUT_PAIR = 0;
+constexpr int K1_OUT_F32 = 1;
+constexpr int K1_OUT_F64 = 2;
+
+// The finished product's factors: deferred = 2**(-slice_bits*(s+1))
+// and the operands' float64 sigma vectors, m and n long (unused for
+// K1_OUT_PAIR).
+struct K1Epilogue {
+  const double* sigma_a;
+  const double* sigma_b;
+  double deferred;
+  int kind;
+};
+
+// A thread's elements of its warpgroup's 64 x BN tile that lie inside
+// (m, n): f(at, row, col, i) with i the element's index in hi/lo.
+// Element c of n8 tile j sits at row r0 + 8 * (c >= 2), column c0 + 8j
+// + (c & 1) (the wgmma accumulator fragment).
+template <int NA, typename F>
+__device__ __forceinline__ void k1_each(int r0, int c0, int m, int n,
+                                        F&& f) {
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = r0 + (c >= 2 ? 8 : 0), col = c0 + 8 * j + (c & 1);
+      if (row < m && col < n) f((size_t)row * n + col, row, col, 4 * j + c);
+    }
+}
+
 // Streamed single-warpgroup tiles are held to 170 registers, so that
 // three CTAs share an SM.
 template <int WM, int BN, bool RESIDENT>
@@ -404,9 +453,10 @@ split_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
                   const int8_t* __restrict__ a_sl,
                   const int8_t* __restrict__ b_sl_t,
-                  float* __restrict__ hi_out, float* __restrict__ lo_out,
+                  void* __restrict__ out, float* __restrict__ lo_out,
                   int m, int k, int n, int block_k, int num_layers,
-                  int use_tma, const __grid_constant__ PairSchedule sched) {
+                  int use_tma, const __grid_constant__ PairSchedule sched,
+                  const K1Epilogue ep) {
   constexpr int BM = 64 * WM, NT = 128 * WM, NA = BN / 2;
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ uint64_t bars[2 * K1_MAX_LAYERS];
@@ -585,18 +635,32 @@ split_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-  const int g8 = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int row = m0 + wm0 + warp * 16 + g8 + (c >= 2 ? 8 : 0);
-      const int col = n0 + 8 * j + 2 * t4 + (c & 1);
-      if (row < m && col < n) {
-        hi_out[(size_t)row * n + col] = hi[4 * j + c];
-        lo_out[(size_t)row * n + col] = lo[4 * j + c];
-      }
-    }
+  const int r0 = m0 + wm0 + warp * 16 + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
+  if (ep.kind == K1_OUT_F32) {
+    const float d = __double2float_rn(ep.deferred);
+    float* o = static_cast<float*>(out);
+    k1_each<NA>(r0, c0, m, n, [&](size_t at, int row, int col, int i) {
+      const float c = __fmul_rn(__fadd_rn(hi[i], lo[i]), d);
+      const float sc = __double2float_rn(
+          __dmul_rn(__ldg(ep.sigma_a + row), __ldg(ep.sigma_b + col)));
+      o[at] = __fmul_rn(c, sc);
+    });
+  } else if (ep.kind == K1_OUT_F64) {
+    double* o = static_cast<double*>(out);
+    k1_each<NA>(r0, c0, m, n, [&](size_t at, int row, int col, int i) {
+      const double c = __dmul_rn(
+          __dadd_rn((double)hi[i], (double)lo[i]), ep.deferred);
+      o[at] = __dmul_rn(
+          c, __dmul_rn(__ldg(ep.sigma_a + row), __ldg(ep.sigma_b + col)));
+    });
+  } else {
+    float* o = static_cast<float*>(out);
+    k1_each<NA>(r0, c0, m, n, [&](size_t at, int, int, int i) {
+      o[at] = hi[i];
+      lo_out[at] = lo[i];
+    });
+  }
 }
 
 // K2 — replaces src/repro/kernels/ops.py::split_gemm_pallas_fused (body
@@ -1228,10 +1292,10 @@ cudaError_t k1_map(CUtensorMap* map, const void* base, int layers, int rows,
 template <int WM, int BN, bool RES>
 cudaError_t launch_k1(dim3 grid, size_t smem, cudaStream_t stream,
                       const CUtensorMap& map_a, const CUtensorMap& map_b,
-                      const int8_t* a, const int8_t* b, float* hi,
+                      const int8_t* a, const int8_t* b, void* out,
                       float* lo, int m, int k, int n, int block_k,
                       int layers, int use_tma, int device,
-                      const PairSchedule& sched) {
+                      const PairSchedule& sched, const K1Epilogue& ep) {
   static size_t raised[64] = {};
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   if (smem > raised[device]) {
@@ -1242,33 +1306,46 @@ cudaError_t launch_k1(dim3 grid, size_t smem, cudaStream_t stream,
     raised[device] = smem;
   }
   split_gemm_kernel<WM, BN, RES><<<grid, 128 * WM, smem, stream>>>(
-      map_a, map_b, a, b, hi, lo, m, k, n, block_k, layers, use_tma, sched);
+      map_a, map_b, a, b, out, lo, m, k, n, block_k, layers, use_tma, sched,
+      ep);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// K1's launch arguments after the pointers, fixed per launch shape and
-// plan: the wrapper builds them once per shape (ops._k1_launch_args) and
-// passes their address, so a call converts seven arguments, not 17.
+// K1's launch arguments after the pointers, fixed per launch shape, plan
+// and output kind: the wrapper builds them once per shape
+// (ops._k1_launch_args) and passes their address, so a call converts
+// nine arguments, not 21.  out_kind is K1_OUT_PAIR, _F32 or _F64;
+// deferred is 2**(-slice_bits*(s+1)).
 struct K1Args {
   int m, k, n, block_k, num_pairs, block_m, block_n, resident;
   int ii[MAX_PAIRS], jj[MAX_PAIRS], wexp[MAX_PAIRS];
+  int out_kind;
+  double deferred;
 };
 
 extern "C" {
 
 // K1 launcher: a_sl (s, m, k) int8, k-major b_sl_t (s, n, k) int8 ->
-// hi, lo (m, n) f32, all contiguous on `device`; runs on `stream` with
-// the plan tile_model.k1_plan gave (block_m x block_n tile, resident or
-// streamed).  A plan the kernel does not take, or
-// whose shared memory does not fit, is refused.
+// with out_kind K1_OUT_PAIR, out = hi and lo (m, n) f32; with K1_OUT_F32
+// or _F64, out = the finished product (m, n) in that type from sigma_a
+// (m,) and sigma_b (n,) f64, and lo unused.  All contiguous on
+// `device`; runs on `stream` with the plan tile_model.k1_plan gave
+// (block_m x block_n tile, resident or streamed).  A plan the kernel does
+// not take, or whose shared memory does not fit, is refused.
 cudaError_t split_gemm_launch(const void* a_sl, const void* b_sl_t,
-                              void* hi, void* lo, const K1Args* args,
+                              void* out, void* lo, const void* sigma_a,
+                              const void* sigma_b, const K1Args* args,
                               int device, void* stream) {
   const int m = args->m, k = args->k, n = args->n, block_k = args->block_k;
   const int block_m = args->block_m, block_n = args->block_n;
   const int resident = args->resident;
+  const K1Epilogue ep{(const double*)sigma_a, (const double*)sigma_b,
+                      args->deferred, args->out_kind};
+  const bool finished = ep.kind == K1_OUT_F32 || ep.kind == K1_OUT_F64;
+  if (finished ? !sigma_a || !sigma_b : ep.kind != K1_OUT_PAIR || !lo)
+    return cudaErrorInvalidValue;
   PairSchedule sched;
   cudaError_t err = check_dims(m, k, n, block_k);
   if (err == cudaSuccess)
@@ -1308,9 +1385,8 @@ cudaError_t split_gemm_launch(const void* a_sl, const void* b_sl_t,
 #define REPRO_K1(BM, BN, RES)                                                \
   if (block_m == BM && block_n == BN && !resident == !RES)                   \
     return launch_k1<BM / 64, BN, RES>(grid, smem, st, map_a, map_b, a, b,   \
-                                       (float*)hi, (float*)lo, m, k, n,      \
-                                       block_k, layers, use_tma, device,     \
-                                       sched);
+                                       out, (float*)lo, m, k, n, block_k,    \
+                                       layers, use_tma, device, sched, ep);
   REPRO_K1(64, 32, true)
   REPRO_K1(64, 64, true)
   REPRO_K1(64, 32, false)

@@ -9,8 +9,12 @@ kernels:
   ``b_sl_t (s, n, k)`` in, the compensated f32 pair ``(hi, lo)`` out;
   :func:`split_gemm` takes B's stack as the reference lays it out,
   ``(s, k, n)``, and transposes it in front of the kernel.
+  :func:`split_gemm_kmajor_combined` is the same kernel with the
+  operands' sigma vectors: its epilogue finishes the product in
+  float32 or float64 instead of storing ``(hi, lo)``.
   :func:`ozaki_matmul` slices B k-major directly and calls
-  :func:`split_gemm_kmajor`, so the main paths never transpose;
+  :func:`split_gemm_kmajor_combined` (or, for another output dtype,
+  :func:`split_gemm_kmajor`), so the main paths never transpose;
 * **K2** :func:`split_gemm_fused` — replaces ``split_gemm_pallas_fused``:
   the operands enter as exact f32 ``(hi, lo)`` halves of the
   sigma-scaled A and B and are quantized to int8 in shared memory, so no
@@ -28,12 +32,17 @@ For each output tile all three walk the slice pairs in schedule order and,
 inside each pair, the ``block_k``-wide k-tiles; each step's exact int32
 partial is weighted by ``2**((s-1-i-j)*w)`` and TwoSum-folded into
 ``hi`` with ``lo += err``.  The emulated product is
-``(hi + lo) * 2**(-w*(s+1)) * sigma_a (x) sigma_b``.
+``(hi + lo) * 2**(-w*(s+1)) * sigma_a (x) sigma_b``: the combine, whose
+roundings are fixed as a chain of torch ops (:func:`combine`).  For a
+float32 or float64 output K1's epilogue runs that chain itself, one
+rounding for one, so the product leaves the kernel finished and bitwise
+the chain's.
 
 Each wrapper runs the kernel for CUDA tensors (or raises) and the
 kernel's plain version, :func:`split_gemm_plain` /
-:func:`split_gemm_fused_plain` / :func:`split_gemm_v1_plain`, for CPU
-tensors; there is no fallback
+:func:`split_gemm_kmajor_combined_plain` (plain K1, then
+:func:`combine`) / :func:`split_gemm_fused_plain` /
+:func:`split_gemm_v1_plain`, for CPU tensors; there is no fallback
 from one to the other.  The plain versions execute the kernel's loop
 nest in eager torch (pair-major, then k-tile, then the TwoSum fold) and
 are held bitwise against the Pallas kernels in interpret mode by the
@@ -44,7 +53,11 @@ plain versions on the card.  ``LAUNCHES`` counts kernel launches.
 slicing kernel per operand on the card, ``slice_matrix`` on the CPU).
 It opens the layer span ``ozaki`` around each call, and inside it
 ``ozaki.slice`` (both operands' slicing), ``ozaki.kernel`` (the
-launch) and ``ozaki.combine`` (:mod:`repro_torch.obs.trace`).
+launch, with its epilogue) and, only where the torch combine runs (an
+output dtype other than float32 and float64, or K2's path),
+``ozaki.combine`` (:mod:`repro_torch.obs.trace`).  ``COMBINES`` counts
+the calls that finished in K1's epilogue and those that ran the torch
+combine.
 
 The pair schedule is built once per ``(s, slice_bits)`` (and, for K3's
 gather, once per device) and shared by all three wrappers.
@@ -64,7 +77,9 @@ from ..obs.trace import span
 from . import _build, slicing, tile_model
 
 __all__ = [
+    "COMBINES",
     "LAUNCHES",
+    "combine",
     "gather_pairs",
     "gather_pairs_kmajor",
     "gather_pairs_kmajor_plain",
@@ -73,6 +88,8 @@ __all__ = [
     "split_gemm_fused",
     "split_gemm_fused_plain",
     "split_gemm_kmajor",
+    "split_gemm_kmajor_combined",
+    "split_gemm_kmajor_combined_plain",
     "split_gemm_kmajor_plain",
     "split_gemm_plain",
     "split_gemm_v1",
@@ -83,6 +100,14 @@ __all__ = [
 #: Launches of each CUDA kernel, counted where the wrapper launches it.
 LAUNCHES = {"split_gemm": 0, "split_gemm_fused": 0, "split_gemm_v1": 0,
             "gather_pairs_kmajor": 0, "slice_operand": 0}
+
+#: :func:`ozaki_matmul` calls by where their product was finished: in
+#: K1's epilogue or by the torch combine.
+COMBINES = {"epilogue": 0, "torch": 0}
+
+#: The output dtypes K1's epilogue finishes, and its kind for each.
+_OUT_KINDS = {torch.float32: _build.K1_OUT_F32,
+              torch.float64: _build.K1_OUT_F64}
 
 
 def pair_schedule_arrays(num_splits: int, slice_bits: int):
@@ -125,6 +150,29 @@ def split_gemm_kmajor_plain(a_sl, b_sl_t, num_splits: int,
     """Plain version of K1 on k-major B slices ``(s, n, k)``."""
     return split_gemm_plain(a_sl, b_sl_t.transpose(1, 2), num_splits,
                             slice_bits, block_k)
+
+
+def combine(hi, lo, sigma_a, sigma_b, num_splits: int, out_dtype,
+            slice_bits: int = SLICE_BITS):
+    """The emulated product from K1's pair: ``(hi + lo) *
+    2**(-w*(s+1)) * sigma_a (x) sigma_b`` in ``out_dtype``, the sigma
+    product in float64.  K1's epilogue repeats these roundings."""
+    deferred = 2.0 ** (-slice_bits * (num_splits + 1))
+    c = (hi.to(out_dtype) + lo.to(out_dtype)) * deferred
+    scale = (sigma_a[:, None] * sigma_b[None, :]).to(out_dtype)
+    return c * scale
+
+
+def split_gemm_kmajor_combined_plain(a_sl, b_sl_t, sigma_a, sigma_b,
+                                     num_splits: int, out_dtype,
+                                     slice_bits: int = SLICE_BITS,
+                                     block_k: int = 128):
+    """Plain version of K1 with its epilogue: plain K1, then
+    :func:`combine`."""
+    hi, lo = split_gemm_kmajor_plain(a_sl, b_sl_t, num_splits, slice_bits,
+                                     block_k)
+    return combine(hi, lo, sigma_a, sigma_b, num_splits, out_dtype,
+                   slice_bits)
 
 
 @functools.lru_cache(maxsize=None)
@@ -332,11 +380,48 @@ def split_gemm_kmajor(a_sl, b_sl_t, num_splits: int,
                       block_k, plan)
 
 
+def split_gemm_kmajor_combined(a_sl, b_sl_t, sigma_a, sigma_b,
+                               num_splits: int, out_dtype,
+                               slice_bits: int = SLICE_BITS,
+                               block_k: int = 128,
+                               plan: tile_model.K1Plan | None = None):
+    """K1 finishing the product in its epilogue: ``(m, n)`` of
+    ``out_dtype``, bitwise :func:`split_gemm_kmajor` followed by
+    :func:`combine`, in one launch.
+
+    Args:
+      a_sl, b_sl_t: as for :func:`split_gemm_kmajor`.
+      sigma_a: (m,) float64 row scales of A; sigma_b: (n,) float64
+        column scales of B (the slicing's ``sigma``), contiguous, on A's
+        device.
+      out_dtype: ``torch.float32`` or ``torch.float64``.
+      block_k, plan: as for :func:`split_gemm`.
+    """
+    if out_dtype not in _OUT_KINDS:
+        raise TypeError(f"K1's epilogue writes float32 or float64, not "
+                        f"{out_dtype}")
+    m, k, n = _check_k1(a_sl, b_sl_t, num_splits, "b_sl_t")
+    _check_inputs({"sigma_a": sigma_a, "sigma_b": sigma_b}, torch.float64,
+                  a_sl.device)
+    if sigma_a.shape != (m,) or sigma_b.shape != (n,):
+        raise ValueError(f"sigma_a {tuple(sigma_a.shape)} and sigma_b "
+                         f"{tuple(sigma_b.shape)} do not match (m, n) = "
+                         f"({m}, {n})")
+    if a_sl.device.type == "cpu":
+        return split_gemm_kmajor_combined_plain(
+            a_sl, b_sl_t, sigma_a, sigma_b, num_splits, out_dtype,
+            slice_bits, block_k)
+    return _launch_k1(a_sl, b_sl_t, m, k, n, num_splits, slice_bits,
+                      block_k, plan, (out_dtype, sigma_a, sigma_b))
+
+
 @functools.lru_cache(maxsize=None)
-def _k1_launch_args(m, k, n, num_splits, slice_bits, block_k, plan):
+def _k1_launch_args(m, k, n, num_splits, slice_bits, block_k, plan,
+                    out_kind: int = _build.K1_OUT_PAIR):
     """The launcher's arguments after the pointers, per launch shape:
-    the k-tile, the schedule and the plan's fields, in one struct.  A
-    forced plan K1 cannot take raises ``ValueError``."""
+    the k-tile, the schedule, the plan's fields and the epilogue's
+    output kind and deferred scale, in one struct.  A forced plan K1
+    cannot take raises ``ValueError``."""
     bk = tile_model.effective_block_k(k, block_k)
     if plan is None:
         plan = tile_model.k1_plan(m, k, n, num_splits, bk)
@@ -349,23 +434,37 @@ def _k1_launch_args(m, k, n, num_splits, slice_bits, block_k, plan):
                          resident=int(plan.resident))
     args.ii[:len(ii)], args.jj[:len(ii)] = ii.tolist(), jj.tolist()
     args.wexp[:len(ii)] = wexp.tolist()
+    args.out_kind = out_kind
+    args.deferred = 2.0 ** (-slice_bits * (num_splits + 1))
     return args
 
 
 def _launch_k1(a_sl, b_sl_t, m, k, n, num_splits, slice_bits, block_k,
-               plan):
-    """K1 on slice stacks already checked."""
+               plan, finish=None):
+    """K1 on slice stacks already checked: ``(hi, lo)``, or with
+    ``finish = (out_dtype, sigma_a, sigma_b)`` (checked too) the
+    product its epilogue finished."""
     dev = a_sl.device
-    args = _k1_launch_args(m, k, n, num_splits, slice_bits, block_k, plan)
     lib = _lib()
-    hi = torch.empty((m, n), dtype=torch.float32, device=dev)
-    lo = torch.empty_like(hi)
-    code = lib.split_gemm_launch(a_sl.data_ptr(), b_sl_t.data_ptr(),
-                                 hi.data_ptr(), lo.data_ptr(), args,
-                                 dev.index or 0, _stream(dev))
+    if finish is None:
+        args = _k1_launch_args(m, k, n, num_splits, slice_bits, block_k,
+                               plan)
+        hi = torch.empty((m, n), dtype=torch.float32, device=dev)
+        lo = torch.empty_like(hi)
+        result = hi, lo
+        ptrs = hi.data_ptr(), lo.data_ptr(), None, None
+    else:
+        out_dtype, sigma_a, sigma_b = finish
+        args = _k1_launch_args(m, k, n, num_splits, slice_bits, block_k,
+                               plan, _OUT_KINDS[out_dtype])
+        result = torch.empty((m, n), dtype=out_dtype, device=dev)
+        ptrs = (result.data_ptr(), None, sigma_a.data_ptr(),
+                sigma_b.data_ptr())
+    code = lib.split_gemm_launch(a_sl.data_ptr(), b_sl_t.data_ptr(), *ptrs,
+                                 args, dev.index or 0, _stream(dev))
     _raise_on(lib, code, "split_gemm")
     LAUNCHES["split_gemm"] += 1
-    return hi, lo
+    return result
 
 
 def split_gemm_fused(a_hi, a_lo, b_hi, b_lo, num_splits: int,
@@ -501,7 +600,10 @@ def ozaki_matmul(a, b, num_splits: int = 6, accumulator: str = "df32",
     :func:`repro_torch.kernels.tile_model.select_tiles`.  Only
     ``block_k`` changes the result; the CUDA kernels run their own CTA
     tile (K1's :func:`~repro_torch.kernels.tile_model.k1_plan`, K2's
-    32x32) whatever ``block_m``/``block_n`` say.
+    32x32) whatever ``block_m``/``block_n`` say.  A float32 or float64
+    product leaves K1 finished (its epilogue runs :func:`combine`'s
+    roundings); another output dtype, and the ``fuse_slicing`` path, run
+    :func:`combine` after the kernel.  ``COMBINES`` counts which.
     """
     with span("ozaki"):
         if accumulator not in ("df32", None):
@@ -547,12 +649,18 @@ def ozaki_matmul(a, b, num_splits: int = 6, accumulator: str = "df32",
                 # the same launch.
                 b_sl_t, sigma_b = slicing.slice_operand(b.mT, num_splits,
                                                         slice_bits)
+            if out_dtype in _OUT_KINDS:
+                with span("ozaki.kernel"):
+                    c = split_gemm_kmajor_combined(
+                        a_sl, b_sl_t, sigma_a, sigma_b, num_splits,
+                        out_dtype, slice_bits=slice_bits, block_k=block_k)
+                COMBINES["epilogue"] += 1
+                return c
             with span("ozaki.kernel"):
                 hi, lo = split_gemm_kmajor(a_sl, b_sl_t, num_splits,
                                            slice_bits=slice_bits,
                                            block_k=block_k)
+        COMBINES["torch"] += 1
         with span("ozaki.combine"):
-            deferred = 2.0 ** (-slice_bits * (num_splits + 1))
-            c = (hi.to(out_dtype) + lo.to(out_dtype)) * deferred
-            scale = (sigma_a[:, None] * sigma_b[None, :]).to(out_dtype)
-            return c * scale
+            return combine(hi, lo, sigma_a, sigma_b, num_splits, out_dtype,
+                           slice_bits)

@@ -51,7 +51,9 @@ port's layer spans land in the run too: ``train.step`` with its
 ``train.forward``, ``train.backward`` and ``train.optimizer``, one
 ``offload.site`` per execution of an offloaded site (backward ones on
 autograd's thread), and one ``ozaki`` per ``ozaki_matmul`` call with
-its ``ozaki.slice``, ``ozaki.kernel`` and ``ozaki.combine``.  They
+its ``ozaki.slice`` and ``ozaki.kernel`` (K1, whose epilogue finishes a
+float32 or float64 product), and ``ozaki.combine`` only where the torch
+combine runs after the kernel (another output dtype, or K2).  They
 are held in memory while the steps run and written to the run's JSONL
 when the step loop ends; ``python -m repro_torch.obs export`` renders
 them as a Chrome trace.  Without the switch the run's file is as

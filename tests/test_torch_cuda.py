@@ -182,17 +182,117 @@ def test_k1_refuses_a_plan_it_cannot_take():
         ops.split_gemm_kmajor(a_sl, b_t, 6, block_k=512, plan=resident)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("fuse", [False, True])
 @pytest.mark.parametrize("m,k,n", [(256, 256, 4096), (512, 960, 320),
                                    (37, 130, 51)])
-def test_ozaki_matmul_on_card_equals_cpu(m, k, n, fuse):
+def test_ozaki_matmul_on_card_equals_cpu(m, k, n, fuse, dtype):
     # The unfused route slices B k-major on the card (its _pow2_scale's
-    # log runs there) and launches K1 through split_gemm_kmajor.
-    a, b = _operands(m, k, n, 14, torch.float64)
+    # log runs there) and launches K1 through split_gemm_kmajor_combined,
+    # whose epilogue finishes the float32 or float64 product; the CPU
+    # runs plain K1 and the torch combine.
+    a, b = _operands(m, k, n, 14, dtype)
+    before = dict(ops.COMBINES)
     got = ops.ozaki_matmul(a, b, num_splits=6, fuse_slicing=fuse)
+    route = "torch" if fuse else "epilogue"
+    assert ops.COMBINES[route] == before[route] + 1
     want = ops.ozaki_matmul(a.cpu(), b.cpu(), num_splits=6,
                             fuse_slicing=fuse)
+    assert got.dtype == want.dtype == dtype
     assert torch.equal(got.cpu(), want)
+
+
+# K1's epilogue against the torch combine on K1's own pair: MuST's block
+# GEMMs (one k-tile, where the resident plans run), the LM projections,
+# SmolLM-360M's head and a Mellum2 head band (98,304 columns), Mellum2's
+# per-head attention products, ragged expert rows, and k not a multiple
+# of 16 (the byte path).
+EPILOGUE_SHAPES = [(256, 256, 4096), (256, 256, 256), (512, 960, 2560),
+                   (221, 960, 960), (512, 960, 49152), (100, 2304, 98304),
+                   (2048, 128, 2048), (2048, 2048, 128), (509, 2304, 896),
+                   (509, 896, 2304), (37, 130, 51), (100, 1100, 60)]
+EVERY_K1_PLAN = {(64, 32, True), (64, 64, True), (64, 32, False),
+                 (64, 64, False), (128, 64, False)}
+
+
+def _same_bits(x, y):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (x.dtype == y.dtype and x.shape == y.shape
+            and torch.equal(x.view(ints[x.dtype]), y.view(ints[y.dtype])))
+
+
+def _epilogue_against_combine(m, k, n, out_dtype, sigmas=None, s=6):
+    """Every K1 plan at (m, k, n): the combined entry against
+    split_gemm_kmajor and ops.combine on the card; returns the plans."""
+    a, b = _operands(m, k, n, 19, torch.float32)
+    bk = tile_model.select_tiles(m, k, n, s).block_k
+    a_sl, sa = slicing.slice_operand(a, s)
+    b_t, sb = slicing.slice_operand(b.mT, s)
+    if sigmas is not None:
+        sa, sb = sigmas
+    plans = tile_model.k1_plans(m, k, n, s, bk)
+    for plan in plans:
+        hi, lo = ops.split_gemm_kmajor(a_sl, b_t, s, block_k=bk, plan=plan)
+        want = ops.combine(hi, lo, sa, sb, s, out_dtype)
+        del hi, lo
+        before = ops.LAUNCHES["split_gemm"]
+        got = ops.split_gemm_kmajor_combined(a_sl, b_t, sa, sb, s,
+                                             out_dtype, block_k=bk,
+                                             plan=plan)
+        assert ops.LAUNCHES["split_gemm"] == before + 1
+        assert _same_bits(got, want), plan
+    return {(p.block_m, p.block_n, p.resident) for p in plans}
+
+
+def test_epilogue_shapes_cover_every_k1_plan():
+    seen = set()
+    for m, k, n in EPILOGUE_SHAPES:
+        bk = tile_model.select_tiles(m, k, n, 6).block_k
+        seen |= {(p.block_m, p.block_n, p.resident)
+                 for p in tile_model.k1_plans(m, k, n, 6, bk)}
+    assert seen == EVERY_K1_PLAN
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,k,n", EPILOGUE_SHAPES)
+def test_k1_epilogue_bitwise_under_every_plan(m, k, n, out_dtype):
+    _epilogue_against_combine(m, k, n, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,k,n", [(256, 256, 256), (221, 960, 960),
+                                   (37, 130, 51)])
+def test_k1_epilogue_bitwise_where_sigma_leaves_float32(m, k, n, out_dtype):
+    # Scales whose products overflow float32, underflow it to zero and
+    # land in its subnormals, with mantissas of their own, so that the
+    # float64 product's rounding to float32 and the last multiply's
+    # rounding in the subnormal range are both held.
+    gen = np.random.default_rng(23)
+
+    def scales(size):
+        e = gen.integers(-150, 150, size)
+        e[:4] = (-150, 150, -75, 75)
+        x = gen.uniform(1, 2, size) * np.exp2(e)
+        return torch.from_numpy(x).cuda()
+
+    sa, sb = scales(m), scales(n)
+    prod = (sa[:, None] * sb[None, :]).to(torch.float32)
+    assert prod.isinf().any() and (prod == 0).any()
+    assert ((prod != 0) & (prod.abs() < 2.0 ** -126)).any()
+    _epilogue_against_combine(m, k, n, out_dtype, (sa, sb))
+
+
+def test_k1_epilogue_refuses_what_it_cannot_finish():
+    a_sl = torch.zeros((6, 64, 256), dtype=torch.int8, device="cuda")
+    sa = torch.ones(64, dtype=torch.float64, device="cuda")
+    with pytest.raises(TypeError):
+        ops.split_gemm_kmajor_combined(a_sl, a_sl, sa, sa, 6, torch.float16)
+    with pytest.raises(TypeError):
+        ops.split_gemm_kmajor_combined(a_sl, a_sl, sa.float(), sa, 6,
+                                       torch.float32)
+    got = ops.split_gemm_kmajor_combined(a_sl, a_sl, sa, sa, 6,
+                                         torch.float32)
+    assert torch.equal(got, torch.zeros_like(got))
 
 
 @pytest.mark.parametrize("num_splits", [3, 6, 9])

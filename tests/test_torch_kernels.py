@@ -9,6 +9,8 @@ on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 
 import ctypes
 import dataclasses
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -322,8 +324,9 @@ class TestK1Plan:
         # One struct per shape, laid out as K1Args in split_gemm.cu.
         assert ops._build.MAX_PAIRS == tile_model.num_pair_gemms(
             tile_model.MAX_KERNEL_SPLITS)
-        assert ctypes.sizeof(ops._build.K1Args) == 4 * (
-            8 + 3 * ops._build.MAX_PAIRS)
+        # The ints, then the output kind and a double (8-aligned).
+        ints = 4 * (8 + 3 * ops._build.MAX_PAIRS + 1)
+        assert ctypes.sizeof(ops._build.K1Args) == -(-ints // 8) * 8 + 8
         for (m, k, n), s in (((256, 256, 4096), 6), ((512, 960, 320), 16),
                              ((37, 130, 51), 1)):
             bk = tile_model.effective_block_k(k, 512)
@@ -338,6 +341,33 @@ class TestK1Plan:
             assert list(got.ii[:pairs]) == ii.tolist()
             assert list(got.jj[:pairs]) == jj.tolist()
             assert list(got.wexp[:pairs]) == wexp.tolist()
+            assert got.out_kind == ops._build.K1_OUT_PAIR
+            assert got.deferred == 2.0 ** (-6 * (s + 1))
+        for dtype, kind in ((torch.float32, ops._build.K1_OUT_F32),
+                            (torch.float64, ops._build.K1_OUT_F64)):
+            got = ops._k1_launch_args(512, 960, 320, 6, 6, 512, None,
+                                      ops._OUT_KINDS[dtype])
+            assert got.out_kind == kind
+            assert got is not ops._k1_launch_args(512, 960, 320, 6, 6, 512,
+                                                  None)
+
+    def test_launch_arguments_match_the_source(self):
+        # K1Args and the epilogue's output kinds as split_gemm.cu has
+        # them.
+        text = (pathlib.Path(ops.__file__).resolve().parent / "csrc"
+                / "split_gemm.cu").read_text()
+        fields = re.search(r"struct K1Args \{(.*?)\};", text,
+                           re.S).group(1)
+        declared = [(name.split("[")[0], kind)
+                    for kind, names in re.findall(r"(int|double) ([^;]+);",
+                                                  fields)
+                    for name in names.replace(" ", "").split(",")]
+        assert [name for name, _ in ops._build.K1Args._fields_] == [
+            name for name, _ in declared]
+        assert dict(declared)["deferred"] == "double"
+        for name in ("K1_OUT_PAIR", "K1_OUT_F32", "K1_OUT_F64"):
+            value = re.search(rf"constexpr int {name} = (\d+);", text)
+            assert int(value.group(1)) == getattr(ops._build, name)
 
     def test_plans_and_launch_arguments_are_cached(self):
         args = (512, 960, 2560, 6, 6, 512, None)
@@ -555,18 +585,63 @@ class TestWrapper:
             ops.split_gemm_kmajor(a_sl, b_sl, 5)
 
     def test_unfused_wrapper_takes_the_kmajor_entry(self, monkeypatch):
+        # A float64 (or float32) product goes through the k-major entry
+        # whose epilogue finishes it; another output dtype through the
+        # k-major entry that returns (hi, lo).
         calls = []
-        kmajor = ops.split_gemm_kmajor
 
-        def spy(a_sl, b_sl_t, *args, **kw):
-            calls.append(tuple(b_sl_t.shape))
-            return kmajor(a_sl, b_sl_t, *args, **kw)
+        def spy(name):
+            entry = getattr(ops, name)
 
-        monkeypatch.setattr(ops, "split_gemm_kmajor", spy)
+            def counted(a_sl, b_sl_t, *args, **kw):
+                calls.append((name, tuple(b_sl_t.shape)))
+                return entry(a_sl, b_sl_t, *args, **kw)
+            monkeypatch.setattr(ops, name, counted)
+
+        spy("split_gemm_kmajor")
+        spy("split_gemm_kmajor_combined")
         a, b = (torch.from_numpy(x) for x in _operands(20, 70, 30, 43,
                                                        np.float64))
         ops.ozaki_matmul(a, b, num_splits=4)
-        assert calls == [(4, 30, 70)]
+        assert calls == [("split_gemm_kmajor_combined", (4, 30, 70))]
+        ops.ozaki_matmul(a, b, num_splits=4, out_dtype=torch.float16)
+        assert calls[1:] == [("split_gemm_kmajor", (4, 30, 70))]
+
+    @pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("m,k,n,num_splits", [(45, 300, 38, 5),
+                                                  (1, 129, 1, 1),
+                                                  (70, 600, 33, 9)])
+    def test_combined_entry_is_kmajor_then_combine(self, m, k, n,
+                                                   num_splits, out_dtype):
+        a, b = _operands(m, k, n, 45, np.float64)
+        a_sl, sa = core_port.slice_matrix(torch.from_numpy(a), num_splits,
+                                          axis=1)
+        b_t, sb = core_port.slice_matrix(torch.from_numpy(b).mT,
+                                         num_splits, axis=1)
+        hi, lo = ops.split_gemm_kmajor(a_sl, b_t, num_splits, block_k=256)
+        want = ops.combine(hi, lo, sa, sb, num_splits, out_dtype)
+        got = ops.split_gemm_kmajor_combined(a_sl, b_t, sa, sb, num_splits,
+                                             out_dtype, block_k=256)
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert torch.equal(got, want)
+
+    def test_combined_entry_checks_its_inputs(self):
+        a_sl = torch.zeros((3, 8, 16), dtype=torch.int8)
+        b_t = torch.zeros((3, 4, 16), dtype=torch.int8)
+        sa = torch.ones(8, dtype=torch.float64)
+        sb = torch.ones(4, dtype=torch.float64)
+        got = ops.split_gemm_kmajor_combined(a_sl, b_t, sa, sb, 3,
+                                             torch.float32)
+        assert torch.equal(got, torch.zeros((8, 4)))
+        with pytest.raises(TypeError):   # the epilogue's two dtypes only
+            ops.split_gemm_kmajor_combined(a_sl, b_t, sa, sb, 3,
+                                           torch.bfloat16)
+        with pytest.raises(TypeError):   # sigma is float64
+            ops.split_gemm_kmajor_combined(a_sl, b_t, sa.float(), sb, 3,
+                                           torch.float32)
+        with pytest.raises(ValueError):  # sigma_b is n long
+            ops.split_gemm_kmajor_combined(a_sl, b_t, sa, sa, 3,
+                                           torch.float32)
 
     @pytest.mark.parametrize("num_splits", [1, 3, 9])
     @pytest.mark.parametrize("m,k,n", [(1, 129, 1), (100, 1100, 60),

@@ -7,7 +7,9 @@ A tiny LM's step under ``offload(..., "pallas_int8_4")`` on the CPU
 ``train.step`` a step holding its ``train.forward``, ``train.backward``
 and ``train.optimizer``; one ``offload.site`` per execution the
 offload's hook counts; one ``ozaki`` per ``ozaki_matmul`` call holding
-one ``ozaki.slice``, ``ozaki.kernel`` and ``ozaki.combine``.
+one ``ozaki.slice`` and one ``ozaki.kernel``, and no ``ozaki.combine``:
+the float32 products are finished in K1's epilogue (its plain version
+here), inside ``ozaki.kernel``.
 """
 
 import io
@@ -66,15 +68,15 @@ def traced_run():
     step(params, state, torch.as_tensor(data.batch(0)))   # decide sites
     hooked.clear()
     calls = []
-    kmajor = ops.split_gemm_kmajor
+    combined = ops.split_gemm_kmajor_combined
 
     def counted(*args, **kwargs):
         calls.append(1)
-        return kmajor(*args, **kwargs)
+        return combined(*args, **kwargs)
 
     tracer = trace.Tracer()
     with pytest.MonkeyPatch.context() as patch:
-        patch.setattr(ops, "split_gemm_kmajor", counted)
+        patch.setattr(ops, "split_gemm_kmajor_combined", counted)
         with trace.activate(tracer):
             out = _run(step, params, state, data)
     return tracer.events, len(hooked), len(calls), out
@@ -109,13 +111,13 @@ def test_one_ozaki_per_call_with_its_parts(traced_run):
     assert len(ozaki) == calls == hooked
     sites = [s for s in spans if s["name"] == "offload.site"]
     for call in ozaki:
-        for part in ("ozaki.slice", "ozaki.kernel", "ozaki.combine"):
+        for part in ("ozaki.slice", "ozaki.kernel"):
             assert len(_children(spans, call, part)) == 1, part
         assert sum(_inside(call, site) for site in sites) == 1
+    # The products are finished in K1's epilogue: no torch combine runs.
     parts = Counter(s["name"] for s in spans
                     if s["name"].startswith("ozaki."))
-    assert parts == {p: calls for p in
-                     ("ozaki.slice", "ozaki.kernel", "ozaki.combine")}
+    assert parts == {p: calls for p in ("ozaki.slice", "ozaki.kernel")}
 
 
 def test_no_tracer_no_spans_same_outputs(traced_run, monkeypatch):

@@ -371,6 +371,36 @@ def test_expert_spans_nest_in_the_forward():
         m >= EMULATED.min_dim for call in routed for m in call)
 
 
+def test_every_product_is_finished_in_k1s_epilogue(monkeypatch):
+    """A train step's ``ozaki_matmul`` calls, forward and cotangent, all
+    take float32 products: each counts as "epilogue" in ``ops.COMBINES``
+    and is one K1 (its plain version here), and none runs the torch
+    combine.  A fused (K2) call does."""
+    cfg = get_config("mellum2_tiny")
+    model = MoEModel(cfg, device="cpu", seed=2)
+    opt = AdamW(lr=3e-3)
+    step = offload(train.build_train_step(model, opt), EMULATED)
+    data = SyntheticText(cfg.vocab_size, 32, 2, seed=1)
+    k1 = []
+    plain = ops.split_gemm_kmajor_plain
+
+    def counted(*args, **kwargs):
+        k1.append(1)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "split_gemm_kmajor_plain", counted)
+    before = dict(ops.COMBINES)
+    step(model.params, opt.init(model.params),
+         torch.as_tensor(data.batch(0)))
+    assert len(k1) > 3 * cfg.num_layers
+    assert ops.COMBINES == {"epilogue": before["epilogue"] + len(k1),
+                            "torch": before["torch"]}
+    x = torch.randn(16, cfg.d_model)
+    ops.ozaki_matmul(x, x.T, 6, fuse_slicing=True)
+    assert ops.COMBINES == {"epilogue": before["epilogue"] + len(k1),
+                            "torch": before["torch"] + 1}
+
+
 def test_launch_train_runs_the_cpu_preset(tmp_path):
     report = {}
     losses = train.main(

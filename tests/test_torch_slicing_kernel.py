@@ -90,13 +90,35 @@ def test_ozaki_matmul_spans_hold_the_slicing():
         got = ops.ozaki_matmul(a, b, 4)
     spans = tracer.events
     names = [s["name"] for s in spans]
-    assert sorted(names) == ["ozaki", "ozaki.combine", "ozaki.kernel",
-                             "ozaki.slice"]
+    # A float64 product is finished in K1's epilogue, inside
+    # ozaki.kernel: no ozaki.combine.
+    assert sorted(names) == ["ozaki", "ozaki.kernel", "ozaki.slice"]
     outer = spans[names.index("ozaki")]
     for s in spans:
         assert outer["ts"] <= s["ts"]
         assert s["ts"] + s["dur"] <= outer["ts"] + outer["dur"]
     assert torch.equal(got, ops.ozaki_matmul(a, b, 4))
+
+
+@pytest.mark.parametrize("route", ["fused", "bfloat16"])
+def test_torch_combine_keeps_its_span_and_count(route):
+    """Where K1's epilogue does not finish the product (K2's path, or an
+    output dtype other than float32 and float64), the torch combine runs
+    in exactly one ozaki.combine and counts as "torch"."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.standard_normal((48, 64)))
+    b = torch.from_numpy(rng.standard_normal((64, 40)))
+    kw = ({"fuse_slicing": True} if route == "fused"
+          else {"out_dtype": torch.bfloat16})
+    before = dict(ops.COMBINES)
+    tracer = trace.Tracer()
+    with trace.activate(tracer):
+        got = ops.ozaki_matmul(a, b, 4, **kw)
+    names = sorted(s["name"] for s in tracer.events)
+    assert names == ["ozaki", "ozaki.combine", "ozaki.kernel", "ozaki.slice"]
+    assert ops.COMBINES == {"epilogue": before["epilogue"],
+                            "torch": before["torch"] + 1}
+    assert got.dtype == kw.get("out_dtype", torch.float64)
 
 
 def test_build_digest_covers_the_slicing_source(tmp_path, monkeypatch):
